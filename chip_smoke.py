@@ -4,30 +4,46 @@
 From the root of a checkout:  python3 chip_smoke.py
 
 1. builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
-2. holds each kernel against its plain torch version, bit for bit, at the
-   shapes of the main path: one page-batch gather (all B*P pages, per-page
-   keys), one slot seal with explicit rows, every weight leaf (granite's
-   unembed has an odd width; its MAC chunks are 2 words), and the flat
-   tag_root of one slot — and times kernel and plain version with CUDA
-   events;
+2. holds each kernel against its plain torch version at the shapes of the
+   main paths: CTR and MAC bit for bit on one page-batch gather (all B*P
+   pages, per-page keys), one slot seal with explicit rows, every weight
+   leaf (granite's unembed has an odd width; its MAC chunks are 2 words)
+   and the flat tag_root of one slot; sealed attention within two bf16
+   ulps (``ref.OUT_RTOL``, ``ref.OUT_ATOL``) with exact ``bad`` counts at
+   B 8, T 1024 (t_valid 1, 700, 1024) and T 1000, verify off and on, a
+   flipped ciphertext bit inside and past t_valid, and two controls that
+   the limit must reject (the rows past t_valid 700 read to the kernel
+   tile's end; the last valid row dropped) — and times kernel, plain
+   version and, for attention, SDPA over the decrypted cache;
 3. serves granite-3-2b at its full published width and depth (40 layers,
    bf16, random weights from a seeded torch.Generator) through the sealed
    paged engine: two tenant channels, weights sealed under the provider
    channel, four requests with prompts of 9, 23, 40 and 64 tokens and 24
    new tokens each, so chunked prefill, decode across page boundaries and
-   page closes all run; the kernels' launch counts are zeroed just before
-   and read just after;
+   page closes all run;
 4. checks the result: no lane poisoned, every step launched both kernels,
    the sealed-byte counters add up, and the smoke config served on the
    card gives the same tokens as on the CPU;
 5. tampers: one flipped bit in a page of each of tenant A's requests
    poisons exactly A's lanes; one flipped bit of a weight leaf poisons
    every lane;
-6. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+6. runs the fixed-slot ``ServeEngine`` (8 prompts of 1000 tokens, 16 new
+   tokens, a 1024-slot sealed cache) unfused, then with the sealed
+   flash-decode kernel: finite logits, equal first tokens, first decode
+   logits within 0.2, 40 kernel launches per fused decode step, a flipped
+   weight bit poisons every lane; per-layer times of the kernel against
+   CTR unseal + plain attention;
+7. serves through ``SecureGateway``: a 32-token prefix matched by two
+   requests, four low-priority requests and a priority-5 one that
+   preempts (swap out and in), an audit chain that verifies, and a
+   flipped page bit in each of one tenant's requests poisoning only those;
+8. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
-Any failed check raises and the script exits non-zero.  Without a CUDA
-device, or outside a checkout, it exits non-zero before printing a result.
+Each path's kernel launch counts are zeroed just before it runs and read
+just after.  Any failed check raises and the script exits non-zero.
+Without a CUDA device, or outside a checkout, it exits non-zero before
+printing a result.
 """
 from __future__ import annotations
 
@@ -55,11 +71,18 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # folds and the +1, a 64-bit product with two folds, and the 64-bit add.
 CTR_OPS_PER_BLOCK = 20 * 3 + 5 * 2 + 2 + 2
 MAC_OPS_PER_WORD = 20
+# float32 outside the tensor cores (data sheet), for the attention's dot
+# products in the sealed-attention kernel
+F32_FLOPS_PER_S = 67e12
 
 N_PAGES, PAGE, CHUNK_WORDS = 64, 16, 128
 SLOTS, MAX_PAGES, PREFILL_CHUNK = 4, 8, 64
 PROMPTS, MAX_NEW = (9, 23, 40, 64), 24
 SEED = 0
+# the fixed-slot phase: 8 lanes of 1000-token prompts, 16 new tokens each,
+# in a 1024-slot cache (granite: 8 KV heads of 4 query heads, hd 64)
+FIXED_B, FIXED_PROMPT, FIXED_NEW, FIXED_MAX_LEN = 8, 1000, 16, 1024
+LOGIT_TOL = 0.2     # fused vs plain decode logits (the reference's own)
 
 
 def card_line() -> str:
@@ -88,6 +111,32 @@ def device_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_events(prof):
+    """The profiler's device (kernel) rows.  A CPU operator's row repeats
+    the device time of the kernels it launched, so only these rows add up
+    to the time the device was busy."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+
+
+def device_busy_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn`` per call: its kernels' own times under
+    torch.profiler over ``reps`` calls, after one warm-up call.  Unlike
+    CUDA events around one call, it leaves out the host time between
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 \
+        / reps
 
 
 def kernel_checks(sealed, provider_key):
@@ -238,8 +287,7 @@ def serve(cfg, sealed, provider, tenants, profiler):
         runner.admit(r)
     steps = []
     torch.cuda.synchronize()
-    ctr_ops.ctr_xor.launches = 0
-    mac_ops.mac_tags.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     while runner.live:
         for kind, fn in (("prefill", runner.prefill_step),
@@ -255,9 +303,7 @@ def serve(cfg, sealed, provider, tenants, profiler):
                     poisoned=ev["poisoned"]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"ctr_cipher": ctr_ops.ctr_xor.launches,
-                "tree_mac": mac_ops.mac_tags.launches}
-    return eng, reqs, steps, wall, launches
+    return eng, reqs, steps, wall, read_launches()
 
 
 def tamper(eng, tenants, provider, vocab):
@@ -298,7 +344,8 @@ def tamper(eng, tenants, provider, vocab):
 
 def profile_step(step):
     """One decode step under torch.profiler: wall ms, device-busy ms (sum of
-    kernel self times), launches and the top operators by device time."""
+    the kernels' device times), launches and the top kernels by device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -308,13 +355,354 @@ def profile_step(step):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
+            "kernel_launches": sum(e.count for e in events),
             "top": [{"op": e.key[:60], "device_ms": e.self_device_time_total
                      / 1e3, "count": e.count} for e in top]}
+
+
+def attention_bound(B, K, G, hd, t_valid, verify):
+    """Bytes, operations and bound of one sealed-attention call: q read and
+    the output written once, each valid K and V row (and its tag when
+    verifying) read once; per valid row hd/4 Threefry blocks (and hd/2 MAC
+    words when verifying) of integer work, plus the f32 dot products."""
+    rows = B * t_valid * K
+    nbytes = (2 * B * K * G * hd * 2 + 2 * rows * hd * 2 + B * K * 4
+              + (2 * rows * 4 if verify else 0))
+    ops = 2 * rows * (hd // 4) * CTR_OPS_PER_BLOCK
+    if verify:
+        ops += 2 * rows * (hd // 2) * MAC_OPS_PER_WORD
+    flops = 4 * B * K * G * t_valid * hd
+    # the INT32 and FP32 pipes issue side by side, so the slower one bounds
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(ops / INT32_OPS_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    return dict(bytes=nbytes, ops=ops, flops=flops, bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations")
+
+
+def sdpa_call(q4, kd, vd, t_valid):
+    """One PyTorch attention call over the already-decrypted cache: the
+    attention-only yardstick (it neither decrypts nor verifies, and the
+    port never calls it)."""
+    import torch.nn.functional as F
+
+    B, K, G, hd = q4.shape
+    q = q4.reshape(B, K * G, 1, hd)
+    k = kd[:, :t_valid].permute(0, 2, 1, 3).contiguous()
+    v = vd[:, :t_valid].permute(0, 2, 1, 3).contiguous()
+    return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+
+
+def timings(kernel, plain, library) -> dict:
+    """The kernel's and the library call's device time per call (profiler)
+    and their CUDA-event time around one call (host time included), and
+    the plain version's CUDA-event time."""
+    return dict(ms=device_busy_ms(kernel), event_ms=device_ms(kernel),
+                library_ms=device_busy_ms(library),
+                library_event_ms=device_ms(library),
+                plain_ms=device_ms(plain, reps=3))
+
+
+def attention_checks():
+    """(a) The sealed-attention kernel against its plain version at the
+    fixed phase's shape (B 8, K 8, G 4, hd 64): T 1024 with t_valid 1, 700
+    and 1024 and an odd T 1000, verify off and on; then one flipped
+    ciphertext bit of K or V inside and past t_valid = 700.  At t_valid 700
+    two faulty plain versions (the tail of the kernel's last tile unmasked,
+    the last valid row dropped) must fall outside the limit."""
+    from repro_torch.core import cipher, mac
+    from repro_torch.kernels.sealed_attention import ops as sa_ops
+    from repro_torch.kernels.sealed_attention import ref as sa_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    B, K, G, hd = FIXED_B, 8, 4, 64
+    cases, tamper, controls = [], {}, {}
+    for T, tvs in ((FIXED_MAX_LEN, (1, 700, FIXED_MAX_LEN)), (1000, (1000,))):
+        q = torch.randn((B, K, G, hd), generator=g, device="cuda").bfloat16()
+        k = torch.randn((B, T, K, hd), generator=g, device="cuda").bfloat16()
+        v = torch.randn((B, T, K, hd), generator=g, device="cuda").bfloat16()
+        master = torch.randint(-2**31, 2**31 - 1, (2,), generator=g,
+                               device="cuda", dtype=torch.int64).to(torch.int32)
+        k_ct, v_ct, k_tags, v_tags = sa_ops.seal_cache(k, v, master, 11, 12)
+        keys = (cipher.derive_tensor_key(master, 11),
+                cipher.derive_tensor_key(master, 12),
+                mac.mac_keys(sa_ops._mac_key(master, 11), hd // 2))
+        for tv in tvs:
+            args = (q, k_ct, v_ct, k_tags, v_tags, *keys, tv)
+            for verify in (False, True):
+                out, bad = sa_ops.sealed_decode_attention(*args, verify=verify)
+                want, want_bad = sa_ref.sealed_decode_attention_words_ref(
+                    *args, verify)
+                err = (out.float() - want.float()).abs().max().item()
+                name = f"T {T}, t_valid {tv}, verify {verify}"
+                check(bool(torch.isfinite(out.float()).all())
+                      and sa_ref.out_excess(out, want) <= 0,
+                      f"sealed_attention off by {err} at {name}")
+                check(torch.equal(bad, want_bad) and not bad.any(),
+                      f"sealed_attention bad counts wrong at {name}")
+                cases.append(dict(
+                    shape=name, max_abs_err=err,
+                    **timings(
+                        lambda: sa_ops.sealed_decode_attention(
+                            *args, verify=verify),
+                        lambda: sa_ref.sealed_decode_attention_words_ref(
+                            *args, verify),
+                        sdpa_call(q, k, v, tv)),
+                    **attention_bound(B, K, G, hd, tv, verify)))
+        if T != FIXED_MAX_LEN:
+            continue
+        chunk = sa_ops.chunk_rows(hd)
+        for fault, wrong_tv in (("unmasked tail", -(-700 // chunk) * chunk),
+                                ("dropped row", 699)):
+            want, _ = sa_ref.sealed_decode_attention_words_ref(
+                q, k_ct, v_ct, None, None, *keys[:2], None, 700, False)
+            wrong, _ = sa_ref.sealed_decode_attention_words_ref(
+                q, k_ct, v_ct, None, None, *keys[:2], None, wrong_tv, False)
+            controls[fault] = (wrong.float() - want.float()).abs().max().item()
+            check(sa_ref.out_excess(wrong, want) > 0,
+                  f"the output limit passes a {fault} at t_valid 700")
+        for t in (350, 900):
+            for which, ct in (("k", k_ct), ("v", v_ct)):
+                ct[3, t, 5, 9] ^= 1 << 6
+                args = (q, k_ct, v_ct, k_tags, v_tags, *keys, 700)
+                _, bad = sa_ops.sealed_decode_attention(*args, verify=True)
+                _, want_bad = sa_ref.sealed_decode_attention_words_ref(
+                    *args, True)
+                ct[3, t, 5, 9] ^= 1 << 6
+                expect = torch.zeros_like(bad)
+                expect[3, 5] = int(t < 700)
+                check(torch.equal(bad, expect) and torch.equal(want_bad,
+                                                               expect),
+                      f"flipped {which} bit at t {t}: bad {bad.tolist()}")
+                tamper[f"{which} at t {t}"] = int(bad.sum())
+    return cases, tamper, controls
+
+
+def fixed_phase(cfg, sealed, provider):
+    """(b) The fixed-slot ServeEngine at full width: 8 prompts of 1000
+    tokens, 16 new tokens each, first with the sealed cache unsealed per
+    layer, then with the sealed flash-decode kernel.  Returns the two runs,
+    the per-layer comparison and the weight-tamper result."""
+    from repro_torch.core import cipher
+    from repro_torch.kernels.sealed_attention import ops as sa_ops
+    from repro_torch.kernels.sealed_attention import ref as sa_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    prompts = np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (FIXED_B, FIXED_PROMPT)).astype(np.int32)
+    eng = ServeEngine(cfg=cfg, params=sealed, channel=provider,
+                      max_len=FIXED_MAX_LEN)
+    decode = eng._decode
+    rec = {}
+
+    def watched_decode(params, cache, tokens):
+        n0 = sa_ops.sealed_decode_attention.launches
+        logits, cache = decode(params, cache, tokens)
+        rec["logits"].append(logits.float())
+        rec["sa"].append(sa_ops.sealed_decode_attention.launches - n0)
+        rec["cache"] = cache
+        return logits, cache
+
+    eng._decode = watched_decode
+    runs = {}
+    for fused in (False, True):
+        eng.cfg = cfg.with_(fused_sealed_attention=fused)
+        rec.update(logits=[], sa=[])
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        out = eng.generate({"tokens": prompts}, FIXED_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[fused] = dict(tokens=out, wall=wall, launches=read_launches(),
+                           logits=rec["logits"], sa_per_step=rec["sa"])
+        # one more decode step on the last cache, under the profiler
+        last = rec["cache"]
+        tok = torch.as_tensor(out[:, -1], device="cuda")
+        runs[fused]["profile"] = profile_step(
+            lambda: decode(sealed, last, tok))
+        name = "fused" if fused else "unfused"
+        check(out.shape == (FIXED_B, FIXED_NEW)
+              and ((out >= 0) & (out < cfg.vocab)).all(),
+              f"{name} fixed run gave bad tokens")
+        check(all(bool(torch.isfinite(x).all()) for x in rec["logits"]),
+              f"{name} fixed run has non-finite (poisoned) logits")
+        want = cfg.n_layers if fused else 0
+        check(rec["sa"] == [want] * (FIXED_NEW - 1),
+              f"{name} decode steps launched sealed_attention {rec['sa']}")
+        la = runs[fused]["launches"]
+        check(la["ctr_cipher"] > 0 and la["tree_mac"] > 0,
+              f"{name} fixed run launched {la}")
+    plain, fused = runs[False], runs[True]
+    check((plain["tokens"][:, 0] == fused["tokens"][:, 0]).all(),
+          "fused and unfused first tokens differ")
+    logit_err = (fused["logits"][0] - plain["logits"][0]).abs().max().item()
+    check(logit_err <= LOGIT_TOL,
+          f"first decode logits: fused vs unfused off by {logit_err}")
+
+    # one layer of the last fused step's cache: kernel vs CTR unseal + plain
+    # attention, CUDA events around each (host work inside the window too)
+    cache = rec["cache"]
+    key, tval = eng._kv_key, int(cache["pos"])
+    nk, nv = transformer._kv_nonces(cache["nonce"], 0)
+    kc, vc = cache["k_ct"][0], cache["v_ct"][0]
+    B, T, K, hd = kc.shape
+    G = cfg.n_heads // K
+    q4 = torch.randn((B, K, G, hd), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(
+                         SEED + 6)).bfloat16()
+    tkeys = (cipher.derive_tensor_key(key, nk),
+             cipher.derive_tensor_key(key, nv))
+    args = (q4, kc, vc, None, None, *tkeys, None, tval)
+    out, _ = sa_ops.sealed_decode_attention(*args, verify=False)
+    want, _ = sa_ref.sealed_decode_attention_words_ref(*args, False)
+    err = (out.float() - want.float()).abs().max().item()
+
+    def unfused():
+        kd = cipher.unseal_bits(kc, key, nk, torch.bfloat16)
+        vd = cipher.unseal_bits(vc, key, nv, torch.bfloat16)
+        m = (torch.arange(T, device="cuda") < tval)[None, :, None, None]
+        zero = torch.zeros((), dtype=torch.bfloat16, device="cuda")
+        return L.gqa_attention(q4.reshape(B, 1, K * G, hd),
+                               torch.where(m, kd, zero),
+                               torch.where(m, vd, zero), causal=False,
+                               t_valid=tval)
+
+    def fused_layer():
+        return sa_ops.sealed_decode_attention(
+            q4, kc, vc, None, None, cipher.derive_tensor_key(key, nk),
+            cipher.derive_tensor_key(key, nv), None, tval, verify=False)
+
+    via_unfused = unfused().reshape(B, K, G, hd)
+    err_unfused = (via_unfused.float() - out.float()).abs().max().item()
+    check(sa_ref.out_excess(out, want) <= 0
+          and sa_ref.out_excess(out, via_unfused) <= 0,
+          f"fixed-phase layer: kernel off by {err} (plain version), "
+          f"{err_unfused} (unfused path)")
+    kd = cipher.unseal_bits(kc, key, nk, torch.bfloat16)
+    vd = cipher.unseal_bits(vc, key, nv, torch.bfloat16)
+    layer = dict(
+        t_valid=tval, max_abs_err=err, max_abs_err_vs_unfused=err_unfused,
+        fused_event_ms=device_ms(fused_layer),
+        unfused_event_ms=device_ms(unfused),
+        unfused_ms=device_busy_ms(unfused),
+        **timings(lambda: sa_ops.sealed_decode_attention(*args, verify=False),
+                  lambda: sa_ref.sealed_decode_attention_words_ref(*args,
+                                                                   False),
+                  sdpa_call(q4, kd, vd, tval)),
+        **attention_bound(B, K, G, hd, tval, False))
+    del kd, vd, cache, rec["cache"]
+
+    # a flipped weight bit poisons every lane of the fused engine
+    flat = sealed["layers"]["mlp"]["w_down"].ct.view(-1)
+    flat[flat.numel() // 3] ^= 1 << 3
+    rec.update(logits=[], sa=[])
+    eng.generate({"tokens": prompts[:, :16]}, 2)
+    flat[flat.numel() // 3] ^= 1 << 3
+    poisoned = all(bool(torch.isnan(x).all()) for x in rec["logits"])
+    check(bool(rec["logits"]) and poisoned,
+          "a flipped weight bit did not poison every fixed-slot lane")
+    torch.cuda.empty_cache()
+    return runs, layer, logit_err
+
+
+def gateway_phase(cfg):
+    """(c) SecureGateway at full width: two tenants, a 32-token prefix
+    matched by two requests, four low-priority requests and, four steps
+    later, one of priority 5 that preempts; then a flipped page bit in each
+    of one tenant's requests."""
+    from repro_torch.models import transformer
+    from repro_torch.obs import MonitorConfig
+    from repro_torch.serve import SecureGateway
+
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(SEED),
+                              cfg, "cuda")
+    # the phase tampers on purpose: no automatic quarantine
+    gw = SecureGateway(cfg, params, max_slots=SLOTS, page_size=PAGE,
+                       n_pages=N_PAGES, max_pages_per_seq=MAX_PAGES,
+                       prefill_chunk=PREFILL_CHUNK,
+                       monitor_config=MonitorConfig(tamper_storm_count=0),
+                       device="cuda")
+    del params
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(SEED + 4)
+
+    def prompt(n):
+        return rng.randint(0, cfg.vocab, n).astype(np.int32)
+
+    prefix = prompt(32)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    gw.register_prefix(prefix)
+    rids = [gw.submit("tenant_a", np.concatenate([prefix, prompt(8)]), 16),
+            gw.submit("tenant_b", np.concatenate([prefix, prompt(20)]), 16),
+            gw.submit("tenant_a", prompt(40), 16),
+            gw.submit("tenant_b", prompt(27), 16)]
+    for _ in range(4):
+        gw.step()
+    rids.append(gw.submit("tenant_b", prompt(24), 8, priority=5))
+    gw.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    m = gw.metrics()
+    reqs = [gw.scheduler.requests[r] for r in rids]
+    audit = gw.verify_audit()
+    check(all(r.status == "done" for r in reqs),
+          f"gateway statuses {[r.status for r in reqs]}")
+    check(m["swap_outs"] >= 1 and m["swap_ins"] >= 1,
+          f"no swap: out {m['swap_outs']}, in {m['swap_ins']}")
+    check(m["prefix_hits"] >= 1, f"prefix hits {m['prefix_hits']}")
+    check(audit["ok"], f"audit chain does not verify: {audit}")
+    check(launches["ctr_cipher"] > 0 and launches["tree_mac"] > 0,
+          f"gateway run launched {launches}")
+    result = dict(
+        wall=wall, tokens=m["tokens"], tok_per_s=m["tokens"] / wall,
+        swap_outs=m["swap_outs"], swap_ins=m["swap_ins"],
+        prefix_hits=m["prefix_hits"], prefix_misses=m["prefix_misses"],
+        audit_records=len(gw.audit.records), launches=launches,
+        sealed_bytes_per_token=m["sealed_bytes_per_token"])
+
+    # tamper: one flipped ciphertext bit in a page of each of tenant_a's
+    # requests poisons those and no request of tenant_b
+    a = [gw.submit("tenant_a", prompt(n), 6) for n in (30, 21)]
+    b = [gw.submit("tenant_b", prompt(n), 6) for n in (25, 33)]
+    gw.step()
+    result["profile"] = profile_step(gw.step)
+    for rid in a:
+        gw.pool.k_ct[gw.scheduler.requests[rid].pages[0], 0, 0, 0, 0] ^= 1
+    gw.drain()
+    status = {rid: gw.scheduler.requests[rid].status for rid in a + b}
+    check(all(status[r] == "poisoned" for r in a)
+          and all(status[r] == "done" for r in b),
+          f"page tamper of tenant_a gave {status} (a {a}, b {b})")
+    result["tamper"] = {"tenant_a": [status[r] for r in a],
+                        "tenant_b": [status[r] for r in b]}
+    return result
+
+
+def _counted():
+    from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.kernels.sealed_attention import ops as sa_ops
+    from repro_torch.kernels.tree_mac import ops as mac_ops
+    return {"ctr_cipher": ctr_ops.ctr_xor, "tree_mac": mac_ops.mac_tags,
+            "sealed_attention": sa_ops.sealed_decode_attention}
+
+
+def zero_launches() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def smoke_reference():
@@ -368,6 +756,7 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.core.channel import SecureChannel
     from repro_torch.kernels import build
+    from repro_torch.kernels.sealed_attention import ref as sa_ref
     from repro_torch.models import transformer
     from repro_torch.obs import Profiler
     from repro_torch.serve.engine import TOKEN_POISON
@@ -413,6 +802,19 @@ def main() -> int:
                   flush=True)
             check(c["mismatches"] == 0,
                   f"{name} disagrees with its plain version on {c['shape']}")
+    torch.cuda.empty_cache()
+    attn_cases, attn_tamper, attn_controls = attention_checks()
+    for c in attn_cases:
+        print(f"check sealed_attention [8 x 8 kv heads x 4 x 64] {c['shape']}: "
+              f"max abs err {c['max_abs_err']:.3g}, kernel {c['ms']:.4f} ms "
+              f"device ({c['event_ms']:.4f} ms events), plain "
+              f"{c['plain_ms']:.3f} ms, sdpa over plaintext "
+              f"{c['library_ms']:.4f} ms device ({c['library_event_ms']:.4f}"
+              f" ms events), bound {c['bound_ms']:.4f} ms ({c['bound_by']})",
+              flush=True)
+    print(f"check sealed_attention tamper at t_valid 700, bad rows "
+          f"{json.dumps(attn_tamper)}; limit rejects the faulty controls, "
+          f"max abs err {json.dumps(attn_controls)}", flush=True)
     torch.cuda.empty_cache()
 
     # 4. serve ------------------------------------------------------------
@@ -464,8 +866,53 @@ def main() -> int:
           f"weight bit poisoned {poisoned['weight']}", flush=True)
     print(f"profile: one decode step (4 lanes) {json.dumps(profile)}",
           flush=True)
+    del eng, pool
+    torch.cuda.empty_cache()
 
-    # 7. report -----------------------------------------------------------
+    # 7. the fixed-slot engine, unfused then fused -------------------------
+    runs, layer, logit_err = fixed_phase(cfg, sealed, provider)
+    plain_run, fused_run = runs[False], runs[True]
+    n_fixed = FIXED_B * FIXED_NEW
+    agree = float((plain_run["tokens"] == fused_run["tokens"]).mean())
+    for name, r in (("unfused", plain_run), ("fused", fused_run)):
+        print(f"fixed {name}: {n_fixed} tokens in {r['wall']:.3f} s = "
+              f"{n_fixed / r['wall']:.2f} tok/s; launches "
+              f"{json.dumps(r['launches'])}; sealed_attention per decode "
+              f"step {sorted(set(r['sa_per_step']))}", flush=True)
+    for name, r in (("unfused", plain_run), ("fused", fused_run)):
+        print(f"profile: one {name} fixed decode step (8 lanes) "
+              f"{json.dumps(r['profile'])}", flush=True)
+    print(f"fixed: token agreement fused vs unfused {agree:.4f}, first tokens "
+          f"equal, first decode logits max abs diff {logit_err:.4g}; first "
+          f"tokens {plain_run['tokens'][:, 0].tolist()}", flush=True)
+    print(f"fixed: one layer at t_valid {layer['t_valid']}: kernel "
+          f"{layer['ms']:.4f} ms device ({layer['event_ms']:.4f} ms events),"
+          f" fused with key derivation {layer['fused_event_ms']:.4f} ms "
+          f"events, CTR unseal + plain attention {layer['unfused_ms']:.4f} "
+          f"ms device ({layer['unfused_event_ms']:.4f} ms events), plain "
+          f"version {layer['plain_ms']:.3f} ms events, sdpa over plaintext "
+          f"{layer['library_ms']:.4f} ms device "
+          f"({layer['library_event_ms']:.4f} ms events), bound "
+          f"{layer['bound_ms']:.4f} ms ({layer['bound_by']}); max abs err "
+          f"{layer['max_abs_err']:.3g} (plain version), "
+          f"{layer['max_abs_err_vs_unfused']:.3g} (unfused path); weight "
+          f"tamper poisoned every lane",
+          flush=True)
+
+    # 8. the gateway: sessions, prefix cache, preemption, audit -----------
+    gw = gateway_phase(cfg)
+    print(f"gateway: {gw['tokens']} tokens in {gw['wall']:.3f} s = "
+          f"{gw['tok_per_s']:.2f} tok/s; swap out/in {gw['swap_outs']}/"
+          f"{gw['swap_ins']}; prefix hits/misses {gw['prefix_hits']}/"
+          f"{gw['prefix_misses']}; audit chain OK over "
+          f"{gw['audit_records']} records; sealed bytes/decode-token "
+          f"{gw['sealed_bytes_per_token']:.0f}; launches "
+          f"{json.dumps(gw['launches'])}; page tamper of tenant_a "
+          f"{json.dumps(gw['tamper'])}", flush=True)
+    print(f"profile: one gateway step (4 lanes) {json.dumps(gw['profile'])}",
+          flush=True)
+
+    # 9. report -----------------------------------------------------------
     sources = {"ctr_cipher": ("src/repro_torch/csrc/ctr_cipher.cu",
                               "src/repro/kernels/ctr_cipher/kernel.py:43"),
                "tree_mac": ("src/repro_torch/csrc/tree_mac.cu",
@@ -499,6 +946,41 @@ def main() -> int:
             "shapes": [{k: c[k] for k in ("shape", "ms", "plain_ms",
                                           "bound_ms", "bound_by")}
                        for c in cases]})
+    # one fused decode step: the kernel once per layer over the fixed
+    # phase's cache
+    n_l = cfg.n_layers
+    kernels.append({
+        "name": "sealed_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/sealed_attention.cu",
+        "replaces": "src/repro/kernels/sealed_attention/kernel.py:122",
+        "launches": fused_run["launches"]["sealed_attention"],
+        "launches_per_decode_step": (fused_run["sa_per_step"][0]
+                                     if len(set(fused_run["sa_per_step"]))
+                                     == 1 else fused_run["sa_per_step"]),
+        "max_abs_err": max([c["max_abs_err"] for c in attn_cases]
+                           + [layer["max_abs_err"]]),
+        "tolerance": {"rtol": sa_ref.OUT_RTOL, "atol": sa_ref.OUT_ATOL},
+        "control_max_abs_err": attn_controls,
+        "ms": layer["ms"] * n_l, "event_ms": layer["event_ms"] * n_l,
+        "plain_ms": layer["plain_ms"] * n_l,
+        "bound_ms": layer["bound_ms"] * n_l, "bound_by": layer["bound_by"],
+        "library_ms": layer["library_ms"] * n_l,
+        "library_event_ms": layer["library_event_ms"] * n_l,
+        "library_call": "F.scaled_dot_product_attention over the decrypted "
+                        "cache (attention only)",
+        "workload": f"one fused decode step: {n_l} layers at B {FIXED_B}, "
+                    f"T {FIXED_MAX_LEN}, t_valid {layer['t_valid']}, "
+                    "verify off",
+        "unfused_ms": layer["unfused_ms"] * n_l,
+        "unfused_event_ms": layer["unfused_event_ms"] * n_l,
+        "shapes": [{k: c[k] for k in ("shape", "ms", "event_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")}
+                   for c in attn_cases]})
+    by_path = {"paged": launches, "fixed_unfused": plain_run["launches"],
+               "fixed_fused": fused_run["launches"],
+               "gateway": gw["launches"]}
+    for k in kernels:
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,8 @@ explicit ``session_id``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import hmac
 import itertools
 from typing import Any, Callable
 
@@ -43,6 +45,30 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the plain versions")
     return device
+
+
+def wrap_key_words(key_words: np.ndarray, wrap_key_bytes: bytes,
+                   context: bytes) -> bytes:
+    """Wrap a uint32[2] page key to another principal's control-plane key.
+
+    The pad is HMAC(wrap_key, "key-wrap-v1" | context) truncated to the key
+    width, XORed over the raw key bytes.  Only the holder of
+    ``wrap_key_bytes`` can unwrap; a wrong key or context yields garbage
+    words, and pages unsealed under garbage words fail their MACs.
+    """
+    raw = np.asarray(key_words, np.uint32).tobytes()
+    pad = hmac.new(wrap_key_bytes, b"key-wrap-v1|" + context,
+                   hashlib.sha256).digest()[:len(raw)]
+    return bytes(a ^ b for a, b in zip(raw, pad))
+
+
+def unwrap_key_words(wrapped: bytes, wrap_key_bytes: bytes,
+                     context: bytes) -> np.ndarray:
+    """Inverse of :func:`wrap_key_words`; returns uint32[2] key words."""
+    pad = hmac.new(wrap_key_bytes, b"key-wrap-v1|" + context,
+                   hashlib.sha256).digest()[:len(wrapped)]
+    raw = bytes(a ^ b for a, b in zip(wrapped, pad))
+    return np.frombuffer(raw, np.uint32).copy()
 
 
 def poison_unless(ok: torch.Tensor, tree):
@@ -127,6 +153,17 @@ class SecureChannel:
             raise trust.SecurityError(
                 "nonce epoch space exhausted — rotate the session key")
 
+    def advance_epoch(self, floor: int) -> None:
+        """Raise the key epoch to at least ``floor`` (freshness floor of a
+        warm restart: never re-walk a previous incarnation's nonce lanes)."""
+        if self.epoch >= floor:
+            return
+        if floor >= _EPOCH_SPACE:
+            raise trust.SecurityError(
+                "nonce epoch space exhausted — rotate the session key")
+        self.epoch = floor
+        self._nonce_counter = 0
+
     def fresh_nonce(self, span: int = 1) -> int:
         """Reserve ``span`` consecutive counter slots; return the first nonce."""
         span = max(1, int(span))
@@ -142,6 +179,28 @@ class SecureChannel:
                 | (self.epoch & (_EPOCH_SPACE - 1)) << 16
                 | base)
 
+    def restore_register_floor(self, last_nonce: int) -> None:
+        """Rule-3 warm restart: raise the register files' nonce floor to the
+        last verified launch, so a replayed pre-restart launch stream stays
+        stale.  Monotone: never lowers the floor."""
+        floor = max(0, int(last_nonce))
+        if self.host_regs is not None:
+            self.host_regs.nonce = max(self.host_regs.nonce, floor)
+        if self.device_regs is not None:
+            self.device_regs.last_nonce = max(self.device_regs.last_nonce,
+                                              floor)
+
+    def rekey(self, key_words: np.ndarray, key_bytes: bytes) -> None:
+        """Install a rotated session key: bump the epoch (old-key nonces are
+        dead) and re-key the Rule-3 register path.  Callers re-seal any
+        state from before the rotation (the gateway rotates idle tenants)."""
+        self.key_words = key_words
+        self.key_bytes = key_bytes
+        self.bump_epoch()
+        last = self.device_regs.last_nonce if self.device_regs else 0
+        self.host_regs = HostRegisterFile(key=key_bytes, nonce=last)
+        self.device_regs = DeviceRegisterFile(key=key_bytes, last_nonce=last)
+
     def upload(self, x: torch.Tensor, spec: SealedSpec | None = None):
         """Host -> untrusted device memory: seal a tensor (Rule 1)."""
         spec = spec or self.config.weights
@@ -154,6 +213,18 @@ class SecureChannel:
         span = TREE_LEAF_STRIDE * (n_leaves + 1)
         return sealed_lib.seal_tree(tree, self.jkey, spec,
                                     self.fresh_nonce(span=span))
+
+    def refresh_tree(self, sealed_tree, spec: SealedSpec | None = None):
+        """Re-seal a tree under fresh nonce lanes (epoch bump): verify and
+        decrypt every leaf, then seal again.  Raises on integrity failure —
+        a tampered tree is never re-signed."""
+        spec = spec or self.config.weights
+        tree, ok = sealed_lib.unseal_tree(sealed_tree, self.jkey)
+        if not bool(ok):
+            raise trust.SecurityError(
+                "refresh_tree: sealed tree failed integrity verification")
+        self.bump_epoch()
+        return self.upload_tree(tree, spec)
 
     def download(self, st) -> torch.Tensor:
         """Untrusted device memory -> host enclave: unseal + verify (strict)."""

@@ -207,3 +207,11 @@ def unseal_tree(tree, key: torch.Tensor):
               else torch.ones((), dtype=torch.bool, device=key.device))
     return tree_unflatten(tree, outs), all_ok
 
+
+def reseal_tree(sealed_old, new_tree, key: torch.Tensor):
+    """Reseal a plaintext tree of the same structure into existing sealed
+    slots (nonce bump per leaf)."""
+    out = [reseal(o, n, key) if is_sealed(o) else n
+           for o, n in zip(tree_leaves(sealed_old), tree_leaves(new_tree))]
+    return tree_unflatten(sealed_old, out)
+

@@ -16,7 +16,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense (the only family served here)
+    family: str                   # dense (the only family ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +31,9 @@ class ModelConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     q_block: int = 512            # blocked-attention query block
+    fused_sealed_attention: bool = False  # fixed-slot decode: the sealed
+                                  # flash-decode kernel reads the sealed
+                                  # cache directly (bf16 activations only)
 
     @property
     def hd(self) -> int:

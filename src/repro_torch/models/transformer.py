@@ -1,18 +1,30 @@
-"""Dense GQA transformer LM: parameters and the LM head (torch port).
+"""Dense GQA transformer LM (torch port of ``repro.models.transformer``).
 
-The paged engine (``serve/engine.py``) runs the layer stack itself; this
-module holds what it shares with the reference: ``init`` (full-width random
-weights straight on the device), ``logits_of`` and ``params_from_numpy``,
-which carries the reference's ``init`` tree across so both packages compute
-on the same weights.  Parameters are nested dicts with the reference's keys;
-layer leaves are stacked [n_layers, ...].
+Parameters are nested dicts with the reference's keys; layer leaves are
+stacked [n_layers, ...].  ``init`` makes full-width random weights straight
+on the device, ``params_from_numpy`` carries the reference's ``init`` tree
+across so both packages compute on the same weights.
+
+Serving over a fixed-slot KV cache (token inputs): ``init_cache``,
+``prefill`` and ``decode_step``, with the reference's three decode branches
+— plain cache, sealed cache unsealed per layer, and sealed cache read by
+the sealed flash-decode kernel (``cfg.fused_sealed_attention``).  The paged
+engine (``serve/engine.py``) runs its own layer loop over the same blocks.
+
+Port specifics: the layer scan is a Python loop; ``pos`` and ``nonce`` of a
+cache are host ints; ``decode_step`` writes the new slot into the cache's
+tensors IN PLACE and returns the cache dict with ``pos`` advanced.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..core import cipher
 from ..core.channel import resolve_device
+from ..kernels import common
+from ..kernels.sealed_attention.ops import sealed_decode_attention
 from . import layers as L
 
 
@@ -59,3 +71,180 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return _tensor_from_numpy(tree, device)
+
+
+def layer_params(params, l: int):
+    """Layer ``l``'s parameters out of the stacked [n_layers, ...] tree."""
+    return {name: (sub[l] if isinstance(sub, torch.Tensor)
+                   else {k: v[l] for k, v in sub.items()})
+            for name, sub in params["layers"].items()}
+
+
+def _block(lp, cfg, x, positions, attend):
+    """One pre-norm block; ``attend(q, k, v)`` returns the attention output
+    and the KV to keep.  Returns (x, kept)."""
+    B, S, _ = x.shape
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = L.project_qkv(lp["attn"], cfg, h, positions)
+    a, kept = attend(q, k, v)
+    x = x + L.attn_out(lp["attn"], a, B, S)
+    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.swiglu(lp["mlp"], h2), kept
+
+
+def backbone(params, cfg, x, positions):
+    """Causal forward through the layer stack (prefill, no cache read).
+    Returns (x, (k, v)) with k, v stacked [n_layers, B, S, K, hd]."""
+    def causal(q, k, v):
+        return L.gqa_attention(q, k, v, causal=True,
+                               q_block=cfg.q_block), (k, v)
+
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        x, (k, v) = _block(layer_params(params, l), cfg, x, positions, causal)
+        ks.append(k)
+        vs.append(v)
+    return x, (torch.stack(ks), torch.stack(vs))
+
+
+# ---------------------------------------------------------------------------
+# serving: KV cache (plain or sealed), prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, sealed: bool = False,
+               n_layers: int | None = None, device="cuda"):
+    nl = n_layers if n_layers is not None else cfg.n_layers
+    shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    device = resolve_device(device)
+    cache = {"pos": 0}
+    if sealed:
+        udt = cipher.uint_dtype_for(cfg.act_dtype)
+        cache["k_ct"] = torch.zeros(shape, dtype=udt, device=device)
+        cache["v_ct"] = torch.zeros(shape, dtype=udt, device=device)
+        cache["nonce"] = 0
+    else:
+        cache["k"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+    return cache
+
+
+def _layer_nonce(nonce: int, layer_idx: int) -> int:
+    """Per-(cache epoch, layer) nonce mod 2^32; k uses 2*sub, v 2*sub+1."""
+    return (int(nonce) * 2 * 65536 + int(layer_idx)) & common.M32
+
+
+def _kv_nonces(nonce: int, layer_idx: int) -> tuple[int, int]:
+    sub = _layer_nonce(nonce, layer_idx)
+    return (sub * 2) & common.M32, (sub * 2 + 1) & common.M32
+
+
+def _slot_rows(B: int, T: int, K: int, pos: int, device) -> torch.Tensor:
+    """Counter rows (b*T + pos)*K + k of one token slot, int64 [B, 1, K]."""
+    b = torch.arange(B, dtype=torch.int64, device=device)[:, None, None]
+    k = torch.arange(K, dtype=torch.int64, device=device)[None, None, :]
+    return ((b * T + pos) * K + k) & common.M32
+
+
+def seal_layers(ks: torch.Tensor, vs: torch.Tensor, key: torch.Tensor,
+                nonce: int):
+    """Seal a plaintext cache [L, B, T, K, hd] layer by layer under the
+    per-(epoch, layer) nonces; one CTR launch per cache (the layers are the
+    items of one batch)."""
+    n = ks.shape[0]
+    nk, nv = zip(*(_kv_nonces(nonce, l) for l in range(n)))
+    keys = key.reshape(1, 2).expand(n, 2)
+    return (cipher.seal_bits(ks, keys, torch.tensor(nk, device=ks.device)),
+            cipher.seal_bits(vs, keys, torch.tensor(nv, device=vs.device)))
+
+
+def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
+    """Run the full prompt; return (last-token logits, cache at ``max_len``).
+
+    batch: {"tokens": int [B, S]}.  seal_ctx: (key int32 [2], nonce int)
+    seals the cache — the padding rows too, as the reference does."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens].to(cfg.act_dtype)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device)
+    x, (ks, vs) = backbone(params, cfg, x, positions)
+    pad = max_len - S
+    ks = F.pad(ks, (0, 0, 0, 0, 0, pad))
+    vs = F.pad(vs, (0, 0, 0, 0, 0, pad))
+    cache = {"pos": S}
+    if seal_ctx is not None:
+        key, nonce = seal_ctx
+        k_ct, v_ct = seal_layers(ks, vs, key, nonce)
+        cache.update({"k_ct": k_ct, "v_ct": v_ct,
+                      "nonce": int(nonce) & common.M32})
+    else:
+        cache.update({"k": ks, "v": vs})
+    logits = logits_of(params, cfg, x[:, -1:, :])
+    return logits[:, 0], cache
+
+
+def decode_step(params, cfg, cache, tokens, seal_ctx=None):
+    """One decode step. tokens: int [B].  Returns (logits [B, V], cache):
+    the new slot is written into the cache's tensors in place."""
+    B = tokens.shape[0]
+    pos = int(cache["pos"])
+    dev = tokens.device
+    x = params["embed"][tokens[:, None]].to(cfg.act_dtype)
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
+    sealed = seal_ctx is not None
+    fused = sealed and cfg.fused_sealed_attention
+    if fused and cfg.act_dtype != torch.bfloat16:
+        raise ValueError("fused_sealed_attention requires bf16 activations")
+    key = seal_ctx[0] if sealed else None
+    dt = cfg.act_dtype
+    for l in range(cfg.n_layers):
+        if sealed:
+            kc, vc = cache["k_ct"][l], cache["v_ct"][l]       # [B, T, K, hd]
+            T, K = kc.shape[1], kc.shape[2]
+            nk, nv = _kv_nonces(cache["nonce"], l)
+            rows = _slot_rows(B, T, K, pos, dev)
+        else:
+            kc, vc = cache["k"][l], cache["v"][l]
+
+        def attend(q, k, v):
+            if fused:
+                # seal ONLY the new slot, then flash-decode straight from the
+                # sealed cache: the plaintext cache never reaches memory.
+                # Like the reference, this branch authenticates nothing
+                # (verify off, no tags, no MAC keys).
+                kc[:, pos:pos + 1] = cipher.seal_bits_slice(k, key, nk, rows)
+                vc[:, pos:pos + 1] = cipher.seal_bits_slice(v, key, nv, rows)
+                G = cfg.n_heads // K
+                qk = q.reshape(B, K, G, cfg.hd).to(torch.bfloat16)
+                a4, _ = sealed_decode_attention(
+                    qk, kc, vc, None, None,
+                    cipher.derive_tensor_key(key, nk),
+                    cipher.derive_tensor_key(key, nv), None, pos + 1,
+                    verify=False)
+                return a4.reshape(B, 1, K * G, cfg.hd).to(dt), None
+            if sealed:
+                kcache = cipher.unseal_bits(kc, key, nk, dt)
+                vcache = cipher.unseal_bits(vc, key, nv, dt)
+                # slots at or past pos hold keystream noise (possibly NaN
+                # bits): zero them, or 0 * NaN poisons the softmax-V product
+                tmask = (torch.arange(T, device=dev) < pos)[None, :, None, None]
+                zero = torch.zeros((), dtype=dt, device=dev)
+                kcache = torch.where(tmask, kcache, zero)
+                vcache = torch.where(tmask, vcache, zero)
+            else:
+                kcache, vcache = kc, vc                      # updated in place
+            kcache[:, pos] = k[:, 0]
+            vcache[:, pos] = v[:, 0]
+            a = L.gqa_attention(q, kcache, vcache, causal=False,
+                                t_valid=pos + 1)
+            if sealed:
+                # write back only the new slot's ciphertext (cost ~ bytes
+                # written, paper 3.4); the other slots keep theirs
+                kc[:, pos:pos + 1] = cipher.seal_bits_slice(k, key, nk, rows)
+                vc[:, pos:pos + 1] = cipher.seal_bits_slice(v, key, nv, rows)
+            return a, None
+
+        x, _ = _block(layer_params(params, l), cfg, x, positions, attend)
+    logits = logits_of(params, cfg, x)[:, 0]
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    return logits, new_cache

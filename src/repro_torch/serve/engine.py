@@ -1,8 +1,15 @@
-"""Paged serving engine over the sealed KV pool (torch port of ``PagedEngine``).
+"""Serving engines with sealed KV caches (torch port of ``repro.serve.engine``).
 
-Decodes at variable occupancy over a shared paged KV pool: each active
-lane carries its own sequence length, page table and tenant key (through
-page branding), so mixed-length requests from mutually distrusting tenants
+``ServeEngine`` — the fixed-slot engine: one sealed [L, B, max_len] cache
+per batch, equal-length prompts, whole-batch nonce epochs, over
+``transformer.prefill`` / ``decode_step``.  With
+``cfg.fused_sealed_attention`` its decode reads the sealed cache through
+the sealed flash-decode kernel.
+
+``PagedEngine`` — the multi-tenant engine behind the gateway: decodes at
+variable occupancy over a shared paged KV pool: each active lane carries
+its own sequence length, page table and tenant key (through page
+branding), so mixed-length requests from mutually distrusting tenants
 share one physical cache.  Model weights stay sealed under the provider
 channel and are verified and decrypted inside every step — plaintext
 weights are never kept between steps; KV pages are sealed under tenant
@@ -10,12 +17,11 @@ channels.  A failed weight verify poisons every lane, a failed page verify
 only the lanes whose page table holds the page: their tokens become
 ``TOKEN_POISON``.
 
-Same steps as ``repro.serve.engine.PagedEngine`` (chunked batched prefill,
-decode with OPEN tail pages or legacy whole-page reseals, page close), run
-eagerly: the layer scan is a Python loop, the vmapped page functions run
-as one batch per kernel launch, and the pool's arrays are updated in place.
-The swap / monitor / prefix-cache paths (``reopen_page``, ``renonce_page``,
-``cow_page``) and the fixed-slot ``ServeEngine`` are not ported yet.
+Same steps as the reference (chunked batched prefill, decode with OPEN
+tail pages or legacy whole-page reseals, page close / reopen, nonce-lane
+renonce, copy-on-write), run eagerly: the layer scan is a Python loop, the
+vmapped page functions run as one batch per kernel launch, and the pool's
+arrays are updated in place.
 """
 from __future__ import annotations
 
@@ -26,13 +32,96 @@ import torch
 
 from ..core import sealed as sealed_lib
 from ..core.channel import SecureChannel
+from ..kernels import common
 from ..models import layers as L
 from ..models import transformer
 from ..obs import Profiler, Tracer
 from . import kv_pager
 
+# domain separator for the fixed-slot engine's KV lane: weight-upload nonces
+# and KV-epoch nonces live under different derived keys
+KV_CACHE_DOMAIN = 0x4B5643  # "KVC"
+
 TOKEN_POISON = int(np.iinfo(np.int32).min)  # sentinel for integrity-failed slots
 
+
+def unseal_params(params, key: torch.Tensor, sealed: bool):
+    """Verify and decrypt a sealed weight tree: (tree, ok bool tensor)."""
+    if not sealed:
+        return params, torch.ones((), dtype=torch.bool, device=key.device)
+    return sealed_lib.unseal_tree(params, key)
+
+
+# ---------------------------------------------------------------------------
+# fixed-slot engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeEngine:
+    """Greedy generation for a batch of equal-length prompts over one
+    fixed-slot cache, sealed under the channel's KV subkey when the
+    channel's security is on.  Dense transformers only."""
+    cfg: object
+    params: object                  # sealed tree if channel.config.enabled
+    channel: SecureChannel
+    max_len: int
+
+    def __post_init__(self):
+        if self.cfg.family != "dense":
+            raise ValueError(f"ServeEngine of the port serves dense "
+                             f"transformers, got {self.cfg.family!r}")
+        self._sealed = self.channel.config.enabled
+        self._kv_key = self.channel.subkey(KV_CACHE_DOMAIN)
+        self._nonce_epoch = 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.channel.device
+
+    def _gate(self, logits, ok):
+        return torch.where(ok, logits, torch.full((), float("nan"),
+                                                  dtype=logits.dtype,
+                                                  device=logits.device))
+
+    def _prefill(self, params_in, batch, nonce: int):
+        params, ok = unseal_params(params_in, self.channel.jkey, self._sealed)
+        seal_ctx = (self._kv_key, nonce) if self._sealed else None
+        logits, cache = transformer.prefill(params, self.cfg, batch,
+                                            self.max_len, seal_ctx=seal_ctx)
+        return self._gate(logits, ok), cache
+
+    def _decode(self, params_in, cache, tokens):
+        params, ok = unseal_params(params_in, self.channel.jkey, self._sealed)
+        seal_ctx = ((self._kv_key, cache["nonce"]) if self._sealed else None)
+        logits, cache = transformer.decode_step(params, self.cfg, cache,
+                                                tokens, seal_ctx=seal_ctx)
+        return self._gate(logits, ok), cache
+
+    def generate(self, batch: dict, n_new: int):
+        """batch: {'tokens': int [B, S]}.  Greedy decode -> numpy [B, n_new]."""
+        batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                 for k, v in batch.items()}
+        nonce = self._nonce_epoch & common.M32
+        self._nonce_epoch += 1 + n_new
+        self.channel.launch(lambda: None, {
+            "op": "prefill", "arch": self.cfg.arch_id,
+            "shape": {k: list(v.shape) for k, v in batch.items()},
+            "max_len": self.max_len})
+        logits, cache = self._prefill(self.params, batch, nonce)
+        tok = logits.argmax(dim=-1)
+        out = [tok.cpu().numpy().astype(np.int32)]
+        for i in range(n_new - 1):
+            self.channel.launch(lambda: None, {
+                "op": "decode", "arch": self.cfg.arch_id, "step": i})
+            logits, cache = self._decode(self.params, cache, tok)
+            tok = logits.argmax(dim=-1)
+            out.append(tok.cpu().numpy().astype(np.int32))
+        return np.stack(out, axis=1)  # [B, n_new]
+
+
+# ---------------------------------------------------------------------------
+# paged engine (continuous batching over the shared sealed pool)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class PagedEngine:
@@ -82,10 +171,8 @@ class PagedEngine:
 
     def _unseal_params(self):
         """(plaintext tree, ok) — verified and decrypted for this step only."""
-        if not self._sealed_params:
-            return self.params, torch.ones((), dtype=torch.bool,
-                                           device=self.pool.device)
-        return sealed_lib.unseal_tree(self.params, self.channel.jkey)
+        return unseal_params(self.params, self.channel.jkey,
+                             self._sealed_params)
 
     # -- shared gather: page-table walk + per-page verification ----------
     def _gather_unseal(self, page_tables, seq_lens, active, okp):
@@ -144,22 +231,8 @@ class PagedEngine:
         return (torch.where(tmask, to_cache(kpl), zero),
                 torch.where(tmask, to_cache(vpl), zero), ok_seq)
 
-    def _layer(self, params, l: int):
-        return {name: (sub[l] if isinstance(sub, torch.Tensor)
-                       else {k: v[l] for k, v in sub.items()})
-                for name, sub in params["layers"].items()}
-
     def _block(self, lp, x, positions, attend):
-        """One pre-norm block; ``attend(q, kn, vn)`` returns the attention
-        output and the KV to keep.  Returns (x, kept)."""
-        cfg = self.cfg
-        B, S, _ = x.shape
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, kn, vn = L.project_qkv(lp["attn"], cfg, h, positions)
-        a, kept = attend(q, kn, vn)
-        x = x + L.attn_out(lp["attn"], a, B, S)
-        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + L.swiglu(lp["mlp"], h2), kept
+        return transformer._block(lp, self.cfg, x, positions, attend)
 
     def _emit(self, params, x_last, ok_seq, active):
         """Greedy tokens from [B, 1, D] states, poisoned where not ok."""
@@ -208,8 +281,8 @@ class PagedEngine:
                 return L.gqa_attention(q, kc2, vc2, causal=True,
                                        q_block=cfg.q_block,
                                        base_pos=start), (kn, vn)
-            x, (kn, vn) = self._block(self._layer(params, l), x, positions,
-                                      attend)
+            x, (kn, vn) = self._block(transformer.layer_params(params, l),
+                                      x, positions, attend)
             nk.append(kn)
             nv.append(vn)
 
@@ -291,7 +364,7 @@ class PagedEngine:
         self.pool.note_prefill(sum(n for _, n in lanes), lanes=lanes)
         return tok.cpu().numpy(), ok.cpu().numpy()
 
-    # -- page close (open-page lifecycle) --------------------------------
+    # -- page close / reopen (open-page lifecycle) -----------------------
     def _close_impl(self, page: int):
         pool = self.pool
         kct2, vct2, ktags, vtags, ok = kv_pager.close_page(
@@ -331,6 +404,141 @@ class PagedEngine:
         self.pool.note_close(page, account, ok)
         return ok
 
+    def _reopen_impl(self, page: int, fill_n: int):
+        pool = self.pool
+        kct2, vct2, kst, vst, ok = kv_pager.reopen_page(
+            pool.k_ct[page], pool.v_ct[page], pool.k_tags[page],
+            pool.v_tags[page], pool.keys[page], pool.nonces[page],
+            self.cfg.act_dtype, pool.chunk_words)
+        pool.k_ct[page] = kct2
+        pool.v_ct[page] = vct2
+        pool.k_tags[page] = 0
+        pool.v_tags[page] = 0
+        pool.k_stags[page] = kst
+        pool.v_stags[page] = vst
+        pool.nonces[page] = kv_pager.bump_nonce(pool.nonces[page])
+        pool.open_flags[page] = True
+        pool.fill[page] = fill_n
+        return ok
+
+    def reopen_page(self, page: int, fill: int) -> bool:
+        """Reopen a closed partial page so decode can append (swap-in)."""
+        if not self.open_pages:
+            return True
+        if not self.pool.sealed:
+            self.pool.mark_open([page], fill)
+            self.pool.note_reopen(page, True)
+            return True
+        with self.tracer.span("engine.reopen_page", cat="engine",
+                              args={"page": int(page)}), \
+                self.profiler.phase("reopen",
+                                    tenant=self.pool.owner_of(page)) as ph:
+            self.pool.spend_nonce(page)
+            ok = ph.dispatch(self._reopen_impl(int(page), int(fill)))
+        ok = bool(ok)
+        self.pool.note_reopen(page, ok)
+        return ok
+
+    def _renonce_impl(self, page: int, fresh: int):
+        pool = self.pool
+        k, v, ok = kv_pager.unseal_page(
+            pool.k_ct[page], pool.v_ct[page], pool.k_tags[page],
+            pool.v_tags[page], pool.keys[page], pool.nonces[page],
+            self.cfg.act_dtype, pool.chunk_words)
+        kct2, vct2, ktags2, vtags2 = kv_pager.seal_page(
+            k, v, pool.keys[page], fresh, pool.chunk_words)
+        # fail closed: a page that did not verify under its old nonce must
+        # not come back verifiable under the fresh one
+        pool.k_ct[page] = kct2
+        pool.v_ct[page] = vct2
+        pool.k_tags[page] = kv_pager._poison_tags(ktags2, ok, 0xA5A5A5A5)
+        pool.v_tags[page] = kv_pager._poison_tags(vtags2, ok, 0xA5A5A5A5)
+        pool.nonces[page] = kv_pager._u32_words(fresh)
+        return ok
+
+    def renonce_page(self, page: int, fresh_nonce: int, span: int) -> bool:
+        """Re-seal ``page`` under a freshly reserved channel nonce lane.
+
+        The nonce-headroom alert path: a tail page about to exhaust its
+        reserved nonce span is closed (the last old-lane bump), whole-page
+        re-sealed under the fresh lane's base nonce, its guard restarted at
+        the new span, and reopened (the first new-lane bump).  The plaintext
+        never changes, so the token stream is bitwise-identical to a run
+        that never renonced.
+        """
+        pool = self.pool
+        was_open = bool(pool.open_flags[page])
+        fill_n = int(pool.fill[page])
+        if not pool.sealed:
+            pool.renonce_guard(page, span)
+            pool.note_renonce(page, True)
+            return True
+        if was_open and fill_n == 0:
+            # nothing written under the old lane yet: point the page at the
+            # fresh lane directly, no crypto to carry over
+            pool.nonces[page] = kv_pager._u32_words(fresh_nonce)
+            pool.renonce_guard(page, span)
+            pool.note_renonce(page, True)
+            return True
+        ok = True
+        if was_open:
+            ok = self.close_page(page, account="decode")
+        with self.tracer.span("engine.renonce_page", cat="engine",
+                              args={"page": int(page)}), \
+                self.profiler.phase("renonce",
+                                    tenant=pool.owner_of(page)) as ph:
+            ok2 = ph.dispatch(self._renonce_impl(int(page), int(fresh_nonce)))
+        ok = ok and bool(ok2)
+        pool.renonce_guard(page, span)
+        pool.note_renonce(page, ok)
+        if was_open:
+            ok = self.reopen_page(page, fill_n) and ok
+        return ok
+
+    # -- copy-on-write break of a shared prefix page ---------------------
+    def _cow_impl(self, src: int, dst: int, src_key: torch.Tensor,
+                  fill_n: int):
+        pool = self.pool
+        kct2, vct2, kst, vst, ok = kv_pager.cow_page(
+            pool.k_ct[src], pool.v_ct[src], pool.k_tags[src],
+            pool.v_tags[src], src_key, pool.nonces[src], pool.keys[dst],
+            pool.nonces[dst], self.cfg.act_dtype, pool.chunk_words)
+        pool.k_ct[dst] = kct2
+        pool.v_ct[dst] = vct2
+        pool.k_tags[dst] = 0
+        pool.v_tags[dst] = 0
+        pool.k_stags[dst] = kst
+        pool.v_stags[dst] = vst
+        pool.open_flags[dst] = True
+        pool.fill[dst] = fill_n
+        return ok
+
+    def cow_page(self, src: int, dst: int, src_key_words, fill: int) -> bool:
+        """Copy-on-write: unseal shared page ``src`` under the (unwrapped)
+        prefix key and re-seal its contents into the tenant-owned page
+        ``dst`` as an OPEN page with ``fill`` valid slots.
+
+        A tenant holding the wrong wrap unwraps garbage key words: the
+        unseal MAC fails and the destination's slice tags are written
+        corrupted (poison-on-use).  The shared original is untouched.
+        """
+        pool = self.pool
+        if not pool.sealed:
+            pool.k_ct[dst] = pool.k_ct[src]
+            pool.v_ct[dst] = pool.v_ct[src]
+            pool.mark_open([dst], fill)
+            pool.note_cow(src, dst, True)
+            return True
+        src_key = kv_pager._u32_words(src_key_words).to(pool.device)
+        with self.tracer.span("engine.cow_page", cat="engine",
+                              args={"src": int(src), "dst": int(dst)}), \
+                self.profiler.phase("cow", tenant=pool.owner_of(dst)) as ph:
+            ok = ph.dispatch(self._cow_impl(int(src), int(dst), src_key,
+                                            int(fill)))
+        ok = bool(ok)
+        pool.note_cow(src, dst, ok)
+        return ok
+
     # -- decode ----------------------------------------------------------
     def _decode_impl(self, tokens, seq_lens, active, page_tables, write_pp):
         """One continuous-batching decode step at variable occupancy.
@@ -363,8 +571,8 @@ class PagedEngine:
                 # open mode writes back just the new slot; legacy needs the
                 # full updated cache to re-seal the whole tail page
                 return a, ((kn, vn) if self.open_pages else (kc2, vc2))
-            x, (kk, vv) = self._block(self._layer(params, l), x, positions,
-                                      attend)
+            x, (kk, vv) = self._block(transformer.layer_params(params, l),
+                                      x, positions, attend)
             nk.append(kk)
             nv.append(vv)
         tok = self._emit(params, x, ok_seq, active)

@@ -654,12 +654,12 @@ class PagedKVPool:
 
     # -- device state ----------------------------------------------------
     def write_pages(self, pages: list[int], kct, vct, ktags, vtags) -> None:
-        """Install freshly sealed CLOSED page contents (swap-in, tests)."""
+        """Install freshly sealed CLOSED page contents (swap-in, tests):
+        tensors, or the numpy arrays ``export_pages`` gave."""
         idx = self._idx(pages)
-        self.k_ct[idx] = kct
-        self.v_ct[idx] = vct
-        self.k_tags[idx] = ktags
-        self.v_tags[idx] = vtags
+        for name, val in (("k_ct", kct), ("v_ct", vct), ("k_tags", ktags),
+                          ("v_tags", vtags)):
+            getattr(self, name)[idx] = torch.as_tensor(val).to(self.device)
         self.open_flags[idx] = False
         self.fill[idx] = 0
 

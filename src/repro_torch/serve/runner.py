@@ -1,6 +1,10 @@
 """Drive a PagedEngine the way the reference scheduler does.
 
-Until the scheduler is ported, this is the host loop of the slice:
+The host loop of the port's serving path is the ported ``Scheduler``
+(``serve/scheduler.py``, behind ``SecureGateway``).  ``Runner`` stays as
+the engine-level test harness: a minimal loop without sessions, swap or
+prefix sharing, which ``tests/test_torch_engine*.py`` and chip_smoke.py's
+paged phase use to hold the engine itself against the reference.
 ``admit`` takes a free lane and allocates the request's pages under its
 tenant channel (one ``fresh_nonce(span=page_size + 2)`` per page, as
 ``repro.serve.scheduler`` does); ``prefill_step`` advances every prefilling

@@ -10,8 +10,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import cipher, mac  # noqa: E402
 from repro_torch.kernels.ctr_cipher import ops as ctr_ops  # noqa: E402
 from repro_torch.kernels.ctr_cipher import ref as ctr_ref  # noqa: E402
+from repro_torch.kernels.sealed_attention import ops as sa_ops  # noqa: E402
+from repro_torch.kernels.sealed_attention import ref as sa_ref  # noqa: E402
 from repro_torch.kernels.tree_mac import ops as mac_ops  # noqa: E402
 from repro_torch.kernels.tree_mac import ref as mac_ref  # noqa: E402
 
@@ -58,3 +61,54 @@ def test_tree_mac_kernel_matches_plain_version(gen, n, r, e, dtype, cw):
     assert mac_ops.mac_tags.launches == before + 1
     assert torch.equal(out, mac_ref.mac_tags_ref(x, keys, cw))
     assert np.all(out.cpu().numpy() >= 0)
+
+
+def sealed_cache(gen, B, T, K, G, hd):
+    """A bf16 query and a sealed bf16 KV cache, with the kernel's keys."""
+    q = torch.randn((B, K, G, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, T, K, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, T, K, hd), generator=gen, device="cuda").bfloat16()
+    master = bits(gen, (2,), torch.int32)
+    k_ct, v_ct, k_tags, v_tags = sa_ops.seal_cache(k, v, master, 3, 4)
+    key_k = cipher.derive_tensor_key(master, 3)
+    key_v = cipher.derive_tensor_key(master, 4)
+    mkeys = mac.mac_keys(sa_ops._mac_key(master, 3), hd // 2)
+    return q, [k_ct, v_ct, k_tags, v_tags, key_k, key_v, mkeys]
+
+
+@pytest.mark.parametrize("verify", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("T, tv", [(16, 0), (16, 1), (16, 16), (1000, 0),
+                                   (1000, 1), (1000, 1000), (1024, 0),
+                                   (1024, 1), (1024, 1024)])
+def test_sealed_attention_kernel_matches_plain_version(gen, T, tv, G, hd,
+                                                       verify):
+    """Output within ``ref.OUT_RTOL`` (two bf16 ulps) and ``ref.OUT_ATOL``
+    of the plain version (both f32 softmax, one bf16 rounding); ``bad``
+    exact."""
+    q, args = sealed_cache(gen, 2, T, 2, G, hd)
+    before = sa_ops.sealed_decode_attention.launches
+    out, bad = sa_ops.sealed_decode_attention(q, *args, tv, verify=verify)
+    torch.cuda.synchronize()
+    assert sa_ops.sealed_decode_attention.launches == before + 1
+    want, want_bad = sa_ref.sealed_decode_attention_words_ref(
+        q, *args, tv, verify)
+    assert torch.isfinite(out.float()).all()
+    assert sa_ref.out_excess(out, want) <= 0
+    assert torch.equal(bad, want_bad) and int(bad.sum()) == 0
+
+
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("row, want", [(699, 1), (700, 0), (999, 0)])
+def test_sealed_attention_kernel_counts_tamper_only_below_t_valid(
+        gen, row, want, which):
+    q, args = sealed_cache(gen, 2, 1000, 2, 4, 64)
+    args[which][1, row, 1, 7] ^= 1 << 4
+    _, bad = sa_ops.sealed_decode_attention(q, *args, 700, verify=True)
+    _, want_bad = sa_ref.sealed_decode_attention_words_ref(q, *args, 700,
+                                                           True)
+    assert torch.equal(bad, want_bad)
+    expect = torch.zeros_like(bad)
+    expect[1, 1] = want
+    assert torch.equal(bad, expect)
