@@ -13,8 +13,15 @@ From the root of a checkout:  python3 chip_smoke.py
    B 8, T 1024 (t_valid 1, 700, 1024) and T 1000, verify off and on, a
    flipped ciphertext bit inside and past t_valid, and two controls that
    the limit must reject (the rows past t_valid 700 read to the kernel
-   tile's end; the last valid row dropped) — and times kernel, plain
-   version and, for attention, SDPA over the decrypted cache;
+   tile's end; the last valid row dropped); the sealed matmul within two
+   bf16 ulps plus K 2^-24 max|A| max|B| (``ref.c_excess``) with an exact
+   ``bad`` grid at 256^3, at (512, 256, 512) with a flipped A bit and a
+   flipped B bit, and at granite's two MLP products of one 8192-token
+   microbatch (B the sealed w_gate and w_down of layer 0), with two
+   controls the limit must reject (the last k-step skipped, B's keystream
+   one row off), then its entry point ``ops.matmul`` over both products —
+   and times kernel, plain version and, for attention, SDPA over the
+   decrypted cache, for the matmul torch.matmul over the plaintext;
 3. serves granite-3-2b at its full published width and depth (40 layers,
    bf16, random weights from a seeded torch.Generator) through the sealed
    paged engine: two tenant channels, weights sealed under the provider
@@ -37,7 +44,15 @@ From the root of a checkout:  python3 chip_smoke.py
    requests, four low-priority requests and a priority-5 one that
    preempts (swap out and in), an audit chain that verifies, and a
    flipped page bit in each of one tenant's requests poisoning only those;
-8. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+8. trains granite-3-2b at full width and depth: the state (params, Adam
+   moments) sealed by ``seal_state``, three steps of two 4096-token
+   microbatches through ``make_train_step``, resealed in place; finite
+   losses, seal_ok, CTR and MAC launched every step, the peak memory and
+   one profiled step; a flipped bit in a sealed mu leaf poisons the state;
+   then the smoke config trained for 4 steps through ``Supervisor`` (a
+   failure at step 2, checkpoint, restart, lane refreshes) on the card and
+   on the CPU: losses within 1e-4 relative, the same events;
+9. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Each path's kernel launch counts are zeroed just before it runs and read
@@ -75,6 +90,12 @@ MAC_OPS_PER_WORD = 20
 # products in the sealed-attention kernel
 F32_FLOPS_PER_S = 67e12
 
+# dense bf16 on the tensor cores (data sheet), for the sealed matmul
+BF16_FLOPS_PER_S = 989e12
+# the sealed matmul's own output tile (csrc/sealed_matmul.cu BM = BN): every
+# block regenerates the keystream of the A and B tiles it reads
+MATMUL_TILE = 128
+
 N_PAGES, PAGE, CHUNK_WORDS = 64, 16, 128
 SLOTS, MAX_PAGES, PREFILL_CHUNK = 4, 8, 64
 PROMPTS, MAX_NEW = (9, 23, 40, 64), 24
@@ -83,6 +104,11 @@ SEED = 0
 # in a 1024-slot cache (granite: 8 KV heads of 4 query heads, hd 64)
 FIXED_B, FIXED_PROMPT, FIXED_NEW, FIXED_MAX_LEN = 8, 1000, 16, 1024
 LOGIT_TOL = 0.2     # fused vs plain decode logits (the reference's own)
+# the train phase: train_4k's sequence, cut from 16 sequences per
+# microbatch and 256 a step to one and two (8192 tokens), three steps
+TRAIN_ACCUM, TRAIN_STEPS = 2, 3
+# granite's MLP products for one such microbatch: (name, M, K, N)
+MLP_PRODUCTS = (("w_gate", 8192, 2048, 8192), ("w_down", 8192, 8192, 2048))
 
 
 def card_line() -> str:
@@ -248,8 +274,8 @@ def kernel_checks(sealed, provider_key):
                  tkey.contiguous())
         last_w = -(-e * x.element_size() // 4)
         cw = last_w // mac.chunk_count(last_w, leaf.spec.chunk_words)
-        lkeys = mac.mac_keys(sealed_lib._mac_key(provider_key, leaf.nonce,
-                                                 leaf.spec), cw,
+        lkeys = mac.mac_keys(mac.nonce_mac_key(provider_key, leaf.nonce,
+                                                 leaf.spec.mac_domain), cw,
                              leaf.spec.mac_domain)[None]
         mac_case(f"weight {path} {list(leaf.ct.shape)}", x, lkeys)
     return results
@@ -430,7 +456,7 @@ def attention_checks():
         k_ct, v_ct, k_tags, v_tags = sa_ops.seal_cache(k, v, master, 11, 12)
         keys = (cipher.derive_tensor_key(master, 11),
                 cipher.derive_tensor_key(master, 12),
-                mac.mac_keys(sa_ops._mac_key(master, 11), hd // 2))
+                mac.mac_keys(mac.nonce_mac_key(master, 11), hd // 2))
         for tv in tvs:
             args = (q, k_ct, v_ct, k_tags, v_tags, *keys, tv)
             for verify in (False, True):
@@ -480,6 +506,142 @@ def attention_checks():
                       f"flipped {which} bit at t {t}: bad {bad.tolist()}")
                 tamper[f"{which} at t {t}"] = int(bad.sum())
     return cases, tamper, controls
+
+
+def matmul_bound(M, K, N, verify=True):
+    """Bytes, operations and bound of one sealed matmul: A, B (and their
+    tags) read once and C written once; per four bf16 of A and B one
+    Threefry block and, verifying, per two one MAC word; 2MKN FLOP on the
+    tensor cores.  The integer pipe and the tensor cores run side by
+    side, so the slower one bounds the operations."""
+    elems = M * K + K * N
+    nbytes = 2 * elems + 2 * M * N + (4 * elems // 256 if verify else 0)
+    ops = elems // 4 * CTR_OPS_PER_BLOCK
+    if verify:
+        ops += elems // 2 * MAC_OPS_PER_WORD
+    flops = 2 * M * K * N
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(ops / INT32_OPS_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    # the kernel's own floor: each block regenerates its tiles' keystream
+    regen = CTR_OPS_PER_BLOCK / 4 * M * K * N * 2 / MATMUL_TILE
+    return dict(bytes=nbytes, ops=ops, flops=flops, bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations",
+                keystream_ops=regen)
+
+
+def matmul_checks(sealed, provider_key):
+    """(d) The sealed matmul against its plain version: 256^3 with verify
+    on and off, (512, 256, 512) with a flipped A bit and, apart, a flipped
+    B bit, and granite's two MLP products of one 8192-token microbatch (B
+    the sealed w_gate and w_down of layer 0).  C within two bf16 ulps plus
+    K 2^-24 max|A| max|B| (``ref.c_excess``), ``bad`` exact; at the w_gate
+    product two faulty plain versions (the last k-step skipped, B's
+    keystream one counter row off) must fall outside that limit.  Then the
+    entry point, ``ops.matmul``, over both MLP products with the launch
+    counts zeroed: the main path of this kernel."""
+    from repro_torch.core import cipher, mac
+    from repro_torch.kernels.ctr_cipher.ref import ctr_xor_ref
+    from repro_torch.kernels.sealed_matmul import ops as smm_ops
+    from repro_torch.kernels.sealed_matmul import ref as smm_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    master = torch.randint(-2**31, 2**31 - 1, (2,), generator=g,
+                           device="cuda", dtype=torch.int64).to(torch.int32)
+    na, nb = 21, 22
+    keys = (cipher.derive_tensor_key(master, na),
+            cipher.derive_tensor_key(master, nb),
+            mac.mac_keys(mac.nonce_mac_key(master, na), 128))
+
+    def operands(a, b):
+        a_ct, ta = smm_ops.seal_operand(a, master, na, 128, mac_nonce=na)
+        b_ct, tb = smm_ops.seal_operand(b, master, nb, 128, mac_nonce=na)
+        atol = smm_ref.c_atol(a.shape[1], a.float().abs().max().item(),
+                              b.float().abs().max().item())
+        return [a_ct, b_ct, ta, tb, *keys], atol
+
+    def compare(name, args, atol, verify=True):
+        c, bad = smm_ops.sealed_matmul(*args, verify=verify)
+        want, want_bad = smm_ref.sealed_matmul_ref(*args, verify)
+        excess = smm_ref.c_excess(c, want, atol)
+        err = (c.float() - want.float()).abs().max().item()
+        check(excess <= 0, f"sealed_matmul off by {err} at {name}")
+        check(torch.equal(bad, want_bad),
+              f"sealed_matmul bad grid wrong at {name}")
+        return c, bad, want, dict(shape=name, max_abs_err=err, excess=excess,
+                                  atol=atol, bad_sum=int(bad.sum()))
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).bfloat16()
+
+    cases, tamper, controls = [], {}, {}
+    args, atol = operands(randn(256, 256), randn(256, 256, scale=1 / 16))
+    for verify in (True, False):
+        cases.append(compare(f"256x256x256, verify {verify}", args, atol,
+                             verify)[3])
+    args, atol = operands(randn(512, 256), randn(256, 512, scale=1 / 16))
+    for which, (r, c) in (("A", (17, 93)), ("B", (200, 301))):
+        ct = args[0 if which == "A" else 1]
+        ct[r, c] ^= 1 << 5
+        _, bad, _, rec = compare(f"512x256x512, {which} bit flipped", args,
+                                 atol)
+        ct[r, c] ^= 1 << 5
+        expect = torch.zeros_like(bad)
+        if which == "A":
+            expect[r // 256, :] = 1
+        else:
+            expect[:, c // 256] = 1
+        check(torch.equal(bad, expect),
+              f"flipped {which} bit: bad {bad.tolist()}")
+        tamper[which] = bad.tolist()
+        cases.append(rec)
+
+    mlp, main_args = [], []
+    for name, M, K, N in MLP_PRODUCTS:
+        leaf = sealed["layers"]["mlp"][name]
+        b = cipher.unseal_bits(leaf.ct[0], provider_key, leaf.nonce,
+                               torch.bfloat16)
+        check(tuple(b.shape) == (K, N), f"{name} of layer 0 is {b.shape}")
+        a = randn(M, K)
+        args, atol = operands(a, b)
+        label = f"{M}x{K}x{N} ({name} of layer 0)"
+        c, _, want, rec = compare(label, args, atol)
+        if name == "w_gate":
+            cut = (a[:, :K - 32].float() @ b[:K - 32].float()).bfloat16()
+            controls["last k-step skipped"] = smm_ref.c_excess(cut, want,
+                                                               atol)
+            rows = (torch.arange(K, dtype=torch.int32, device="cuda")
+                    + 1)[None]
+            b_off = ctr_xor_ref(args[1][None], keys[1][None], rows)[0]
+            off = (a.float() @ b_off.view(torch.bfloat16).float()).bfloat16()
+            controls["B keystream one row off"] = smm_ref.c_excess(
+                off, want, atol)
+            del cut, b_off, off
+            for fault, ex in controls.items():
+                check(ex > 0, f"the sealed_matmul limit passes a {fault}")
+        rec.update(**timings(lambda: smm_ops.sealed_matmul(*args),
+                             lambda: smm_ref.sealed_matmul_ref(*args),
+                             lambda: torch.matmul(a, b)),
+                   **matmul_bound(M, K, N))
+        mlp.append(rec)
+        main_args.append((args, c))
+        del want
+        torch.cuda.empty_cache()
+
+    # the main path: the entry point over both products
+    torch.cuda.synchronize()
+    zero_launches()
+    for args, c in main_args:
+        out, n_bad = smm_ops.matmul(args[0], args[1], args[2], args[3],
+                                    master, na, nb)
+        check(int(n_bad) == 0 and torch.equal(out, c),
+              "the sealed_matmul entry point disagrees with its kernel")
+    torch.cuda.synchronize()
+    launches = read_launches()["sealed_matmul"]
+    check(launches == len(MLP_PRODUCTS),
+          f"sealed_matmul entry point launched {launches}")
+    return dict(cases=cases, mlp=mlp, tamper=tamper, controls=controls,
+                launches=launches)
 
 
 def fixed_phase(cfg, sealed, provider):
@@ -688,12 +850,151 @@ def gateway_phase(cfg):
     return result
 
 
+def train_phase(cfg):
+    """(e) Sealed training of granite-3-2b at full width and depth: the
+    state (params, mu, nu: 26.3 GB of ciphertext) sealed by ``seal_state``,
+    three steps of two 4096-token microbatches through ``make_train_step``
+    (resealing in place), one more under the profiler, then one flipped
+    bit in a sealed ``mu`` leaf: seal_ok False and a poisoned state."""
+    from repro_torch.core import sealed as sealed_lib
+    from repro_torch.core.channel import SecureChannel
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.kernels.tree_mac import ops as mac_ops
+    from repro_torch.models import transformer
+    from repro_torch.models.config import TRAIN_4K
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step, seal_state
+
+    channel = SecureChannel.establish(device="cuda")
+    key, sec = channel.jkey, channel.config
+    opt = AdamW(lr=3e-4)                  # f32 moments, as in the reference
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(SEED),
+                              cfg, "cuda")
+    state = seal_state(opt.init(params), key, sec)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sealed_bytes = sum(leaf.nbytes_ct for tree in (state.params, state.mu,
+                                                    state.nu)
+                       for leaf in sealed_lib.tree_leaves(tree))
+    step = make_train_step(transformer, cfg, opt, sec, key, in_place=True)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_4K.seq_len, batch=1)
+    reduced = {"global_batch": [TRAIN_4K.global_batch, TRAIN_ACCUM],
+               "microbatch": [TRAIN_4K.microbatch, 1],
+               "checkpoint": "none at full size (one save writes the 26 GB "
+                             "state and hashes it on the host)"}
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in data.microbatches_at(i, TRAIN_ACCUM).items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        b = batch(i)
+        c0, m0 = ctr_ops.ctr_xor.launches, mac_ops.mac_tags.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        steps.append(dict(wall_s=time.perf_counter() - t0,
+                          loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          seal_ok=bool(m["seal_ok"]),
+                          ctr=ctr_ops.ctr_xor.launches - c0,
+                          mac=mac_ops.mac_tags.launches - m0))
+        s_ = steps[-1]
+        check(np.isfinite(s_["loss"]) and s_["seal_ok"],
+              f"train step {i}: {s_}")
+        check(s_["ctr"] > 0 and s_["mac"] > 0,
+              f"train step {i} launched no kernel: {s_}")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(int(state.step) == TRAIN_STEPS, f"state at step {state.step}")
+    held = {"state": state}
+
+    def one_step():
+        held["state"], _ = step(held["state"], batch(TRAIN_STEPS))
+
+    b = None
+    del state
+    profile = profile_step(one_step)
+    # a flipped bit in one sealed mu leaf poisons everything written
+    state = held.pop("state")
+    mu0 = sealed_lib.tree_leaves(state.mu)[0]
+    mu0.ct.view(-1)[mu0.ct.numel() // 3] ^= 1 << 7
+    state, m = step(state, batch(TRAIN_STEPS + 1))
+    norm, _ = sealed_lib.unseal(state.params["final_norm"], key)
+    nu0, _ = sealed_lib.unseal(sealed_lib.tree_leaves(state.nu)[0], key)
+    poisoned = (not bool(m["seal_ok"]) and bool(torch.isnan(norm).all())
+                and bool(torch.isnan(nu0).all()))
+    check(poisoned, "a flipped mu bit did not poison the train state")
+    del state, norm, nu0, b
+    torch.cuda.empty_cache()
+    return dict(steps=steps, peak_bytes=peak, launches=launches,
+                sealed_bytes=sealed_bytes, profile=profile, reduced=reduced,
+                tokens_per_step=TRAIN_4K.seq_len * TRAIN_ACCUM)
+
+
+def smoke_train_reference():
+    """The smoke config trained for 4 steps on the CPU and on the card,
+    through ``Supervisor`` with a failure at step 2, a checkpoint every 2
+    steps and a lane budget of 3 reseals: (losses, events) of each."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.core.policy import SecurityConfig
+    from repro_torch.core.sealed import (ResealCounter, tree_leaves,
+                                         tree_unflatten)
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_refresh_fn, make_train_step, seal_state
+    from repro_torch.train.fault import FailureInjector, Supervisor
+
+    cfg = configs.get_config("granite-3-2b", smoke=True)
+    params = transformer.init(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=32, batch=4)
+    sec = SecurityConfig()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        key = torch.tensor([0x5EC0DE, 0xFACADE], dtype=torch.int32,
+                           device=dev)
+        opt = AdamW(lr=1e-3)
+        p = tree_unflatten(params, [x.to(dev) for x in tree_leaves(params)])
+        step = make_train_step(transformer, cfg, opt, sec, key)
+        losses = []
+
+        def stepper(s, b, step=step, losses=losses):
+            s, m = step(s, b)
+            losses.append(float(m["loss"]))
+            return s, m
+
+        def batch_fn(i, dev=dev):
+            return {k: torch.as_tensor(v, device=dev)
+                    for k, v in data.microbatches_at(i, 2).items()}
+
+        with tempfile.TemporaryDirectory() as d:
+            sup = Supervisor(step_fn=stepper, batch_fn=batch_fn, ckpt_dir=d,
+                             key_bytes=b"\xabK" * 16, save_every=2,
+                             injector=FailureInjector(fail_at_steps=(2,)),
+                             lane_guard=ResealCounter(limit=3),
+                             refresh_fn=make_refresh_fn(key, sec))
+            _, _, events = sup.run(seal_state(opt.init(p), key, sec), 4)
+        out[dev] = (losses, events)
+    return out
+
+
 def _counted():
     from repro_torch.kernels.ctr_cipher import ops as ctr_ops
     from repro_torch.kernels.sealed_attention import ops as sa_ops
+    from repro_torch.kernels.sealed_matmul import ops as smm_ops
     from repro_torch.kernels.tree_mac import ops as mac_ops
     return {"ctr_cipher": ctr_ops.ctr_xor, "tree_mac": mac_ops.mac_tags,
-            "sealed_attention": sa_ops.sealed_decode_attention}
+            "sealed_attention": sa_ops.sealed_decode_attention,
+            "sealed_matmul": smm_ops.sealed_matmul}
 
 
 def zero_launches() -> None:
@@ -816,6 +1117,25 @@ def main() -> int:
           f"{json.dumps(attn_tamper)}; limit rejects the faulty controls, "
           f"max abs err {json.dumps(attn_controls)}", flush=True)
     torch.cuda.empty_cache()
+    mm = matmul_checks(sealed, provider.jkey)
+    for c in mm["cases"]:
+        print(f"check sealed_matmul {c['shape']}: max abs err "
+              f"{c['max_abs_err']:.3g} (atol {c['atol']:.3g}, excess "
+              f"{c['excess']:.3g}), bad sum {c['bad_sum']}", flush=True)
+    for c in mm["mlp"]:
+        print(f"check sealed_matmul {c['shape']}: max abs err "
+              f"{c['max_abs_err']:.3g} (atol {c['atol']:.3g}), kernel "
+              f"{c['ms']:.4f} ms device ({c['event_ms']:.4f} ms events), "
+              f"plain {c['plain_ms']:.3f} ms, torch.matmul over plaintext "
+              f"{c['library_ms']:.4f} ms device ({c['library_event_ms']:.4f}"
+              f" ms events), bound {c['bound_ms']:.4f} ms ({c['bound_by']});"
+              f" keystream work at {MATMUL_TILE}x{MATMUL_TILE} tiles "
+              f"{c['keystream_ops'] / 1e9:.1f} G ops", flush=True)
+    print(f"check sealed_matmul tamper bad grids {json.dumps(mm['tamper'])}"
+          f"; limit rejects the faulty controls, excess "
+          f"{json.dumps(mm['controls'])}; entry point over the MLP products "
+          f"launched the kernel {mm['launches']} times", flush=True)
+    torch.cuda.empty_cache()
 
     # 4. serve ------------------------------------------------------------
     profiler = Profiler(chunk_words=CHUNK_WORDS)
@@ -911,8 +1231,36 @@ def main() -> int:
           f"{json.dumps(gw['tamper'])}", flush=True)
     print(f"profile: one gateway step (4 lanes) {json.dumps(gw['profile'])}",
           flush=True)
+    del sealed
+    torch.cuda.empty_cache()
 
-    # 9. report -----------------------------------------------------------
+    # 9. sealed training at full size, then the smoke config vs the CPU ---
+    tr = train_phase(cfg)
+    for i, st in enumerate(tr["steps"]):
+        print(f"train: step {i} loss {st['loss']:.4f}, grad norm "
+              f"{st['grad_norm']:.4f}, seal_ok {st['seal_ok']}, "
+              f"{st['wall_s']:.3f} s = "
+              f"{tr['tokens_per_step'] / st['wall_s']:.0f} tok/s, launches "
+              f"ctr {st['ctr']} mac {st['mac']}", flush=True)
+    print(f"train: {TRAIN_STEPS} steps of {tr['tokens_per_step']} tokens, "
+          f"sealed state {tr['sealed_bytes']} bytes, peak memory "
+          f"{tr['peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{json.dumps(tr['launches'])}; reduced from train_4k "
+          f"{json.dumps(tr['reduced'])}; a flipped mu bit poisoned the "
+          f"state", flush=True)
+    print(f"profile: one train step {json.dumps(tr['profile'])}", flush=True)
+    ref = smoke_train_reference()
+    (cpu_l, cpu_ev), (gpu_l, gpu_ev) = ref["cpu"], ref["cuda"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(cpu_l, gpu_l))
+    check(len(cpu_l) == len(gpu_l) and rel <= 1e-4,
+          f"smoke training losses differ: {cpu_l} vs {gpu_l}")
+    check(cpu_ev == gpu_ev and gpu_ev["failures"] == 1,
+          f"smoke training events differ: {cpu_ev} vs {gpu_ev}")
+    print(f"reference: smoke training on cuda == cpu, losses within "
+          f"{rel:.2g} relative over {len(gpu_l)} steps, events "
+          f"{json.dumps(gpu_ev)}", flush=True)
+
+    # 10. report ----------------------------------------------------------
     sources = {"ctr_cipher": ("src/repro_torch/csrc/ctr_cipher.cu",
                               "src/repro/kernels/ctr_cipher/kernel.py:43"),
                "tree_mac": ("src/repro_torch/csrc/tree_mac.cu",
@@ -976,11 +1324,40 @@ def main() -> int:
         "shapes": [{k: c[k] for k in ("shape", "ms", "event_ms", "plain_ms",
                                       "library_ms", "bound_ms", "bound_by")}
                    for c in attn_cases]})
+    # the sealed matmul's path: its entry point over granite's two MLP
+    # products of one 8192-token microbatch
+    n_mlp = len(mm["mlp"])
+    times = {k: sum(c[k] for c in mm["mlp"])
+             for k in ("ms", "event_ms", "plain_ms", "library_ms",
+                       "library_event_ms", "bound_ms")}
+    kernels.append({
+        "name": "sealed_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/sealed_matmul.cu",
+        "replaces": "src/repro/kernels/sealed_matmul/kernel.py:118",
+        "launches": mm["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in mm["cases"] + mm["mlp"]),
+        "tolerance": {"rtol": "2^-6", "atol": "K 2^-24 max|A| max|B|"},
+        "control_excess": mm["controls"], **times,
+        "bound_by": ("operations" if all(c["bound_by"] == "operations"
+                                         for c in mm["mlp"]) else "bytes"),
+        "library_call": "torch.matmul over the decrypted bf16 operands",
+        "workload": f"ops.matmul over {n_mlp} MLP products of one "
+                    f"{MLP_PRODUCTS[0][1]}-token microbatch (w_gate, "
+                    f"w_down of layer 0), verify on",
+        "keystream_ops": sum(c["keystream_ops"] for c in mm["mlp"]),
+        "shapes": [{k: c[k] for k in ("shape", "ms", "event_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by",
+                                      "keystream_ops")}
+                   for c in mm["mlp"]]})
     by_path = {"paged": launches, "fixed_unfused": plain_run["launches"],
                "fixed_fused": fused_run["launches"],
-               "gateway": gw["launches"]}
+               "gateway": gw["launches"],
+               "sealed_matmul": {**{k: 0 for k in launches},
+                                 "sealed_matmul": mm["launches"]},
+               "train": tr["launches"]}
     for k in kernels:
-        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+        k["launches_by_path"] = {p: c.get(k["name"], 0)
+                                 for p, c in by_path.items()}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

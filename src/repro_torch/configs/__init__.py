@@ -1,4 +1,5 @@
-"""Architecture registry of the port (the dense configs it serves)."""
+"""Architecture registry of the port (the dense configs it serves and
+trains)."""
 from __future__ import annotations
 
 import importlib
@@ -17,3 +18,4 @@ def arch_module(arch_id: str):
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     m = arch_module(arch_id)
     return m.SMOKE if smoke else m.CONFIG
+

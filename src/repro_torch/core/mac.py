@@ -24,6 +24,14 @@ from . import cipher
 MAC_DOMAIN = 0xA11CE
 
 
+def nonce_mac_key(master: torch.Tensor, nonce,
+                  domain: int = MAC_DOMAIN) -> torch.Tensor:
+    """int32 [2] MAC key bound to a tensor's nonce: replaying an old
+    (ciphertext, tags) pair under a newer nonce fails its tags."""
+    y0, y1 = cipher.threefry2x32(master, nonce, domain)
+    return torch.stack([y0, y1])
+
+
 def mac_keys(key: torch.Tensor, n_words: int,
              domain: int = MAC_DOMAIN) -> torch.Tensor:
     """int32 [n_words] (or [N, n_words]) multilinear keys in [0, p)."""

@@ -23,6 +23,10 @@ from . import cipher, mac
 from .policy import Protection, SealedSpec
 
 
+class ConsumedSealedTensor(RuntimeError):
+    """The SealedTensor's buffer was overwritten by an in-place reseal."""
+
+
 @dataclasses.dataclass
 class SealedTensor:
     ct: torch.Tensor         # int16/int32 [shape] ciphertext bits
@@ -30,6 +34,18 @@ class SealedTensor:
     nonce: int               # uint32 — counter uniqueness + freshness
     dtype: Any               # plaintext torch dtype
     spec: SealedSpec
+    # Set by an in-place reseal, which writes the next nonce's ciphertext
+    # into ``ct``: ``nonce`` and ``tags`` no longer describe it, and a
+    # reseal from this object would put a second plaintext under that next
+    # nonce's keystream.  ``unseal`` and ``reseal`` refuse it.
+    consumed: bool = False
+
+    def check_live(self) -> None:
+        if self.consumed:
+            raise ConsumedSealedTensor(
+                f"sealed tensor (nonce {self.nonce:#x}) was consumed by an "
+                "in-place reseal; use the state that step returned, or "
+                "restore a checkpoint")
 
     @property
     def shape(self):
@@ -44,12 +60,6 @@ class SealedTensor:
         return self.tags.numel() * 4 + 4
 
 
-def _mac_key(key: torch.Tensor, nonce: int, spec: SealedSpec) -> torch.Tensor:
-    """Nonce-bound MAC key => replaying an old (ct, tags) pair fails."""
-    y0, y1 = cipher.threefry2x32(key, nonce, spec.mac_domain)
-    return torch.stack([y0, y1])
-
-
 def seal(x: torch.Tensor, key: torch.Tensor, nonce: int,
          spec: SealedSpec) -> SealedTensor:
     """Seal a tensor: CTR-encrypt + per-chunk MAC over the *ciphertext*."""
@@ -61,7 +71,8 @@ def seal(x: torch.Tensor, key: torch.Tensor, nonce: int,
     ct = cipher.seal_bits(x, key, nonce)
     tags = empty
     if spec.protection.authenticates:
-        tags = mac.block_tags(ct, _mac_key(key, nonce, spec),
+        tags = mac.block_tags(ct, mac.nonce_mac_key(key, nonce,
+                                                    spec.mac_domain),
                               spec.chunk_words, spec.mac_domain)
     return SealedTensor(ct, tags, nonce, x.dtype, spec)
 
@@ -69,18 +80,20 @@ def seal(x: torch.Tensor, key: torch.Tensor, nonce: int,
 def unseal(st: SealedTensor, key: torch.Tensor):
     """Verify chunk tags, decrypt.  Returns (tensor, ok) with ``ok`` a bool
     tensor on the device: callers gate outputs on it rather than branch."""
+    st.check_live()
     ok = torch.ones((), dtype=torch.bool, device=st.ct.device)
     if st.spec.protection is Protection.NONE:
         return st.ct.view(st.dtype), ok
     if st.spec.protection.authenticates:
-        ok = mac.verify_block_tags(st.ct, _mac_key(key, st.nonce, st.spec),
-                                   st.spec.chunk_words, st.tags,
+        mk = mac.nonce_mac_key(key, st.nonce, st.spec.mac_domain)
+        ok = mac.verify_block_tags(st.ct, mk, st.spec.chunk_words, st.tags,
                                    st.spec.mac_domain).all()
     return cipher.unseal_bits(st.ct, key, st.nonce, st.dtype), ok
 
 
 def reseal(st: SealedTensor, x: torch.Tensor, key: torch.Tensor) -> SealedTensor:
     """Write a new value into a sealed slot: bump nonce, re-encrypt, re-MAC."""
+    st.check_live()
     return seal(x, key, (st.nonce + 1) & common.M32, st.spec)
 
 

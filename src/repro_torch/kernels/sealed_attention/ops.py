@@ -17,7 +17,6 @@ from ...core import cipher, mac
 from .. import build
 from .ref import sealed_decode_attention_words_ref
 
-MAC_DOMAIN = 0xA11CE
 MAX_GROUP = 16      # query heads per KV head (shared memory per block)
 
 
@@ -121,18 +120,13 @@ def sealed_decode_attention(q, k_ct, v_ct, k_tags, v_tags, key_k, key_v,
 sealed_decode_attention.launches = 0
 
 
-def _mac_key(master: torch.Tensor, nonce, domain: int = MAC_DOMAIN):
-    y0, y1 = cipher.threefry2x32(master, nonce, domain)
-    return torch.stack([y0, y1])
-
-
 def seal_cache(k, v, master_key, nonce_k, nonce_v, mac_nonce=None):
     """Seal a [B, T, K, hd] bf16 KV pair -> (k_ct, v_ct, k_tags, v_tags)."""
     mac_nonce = nonce_k if mac_nonce is None else mac_nonce
     hd = k.shape[-1]
     k_ct = cipher.seal_bits(k, master_key, nonce_k)
     v_ct = cipher.seal_bits(v, master_key, nonce_v)
-    mk = _mac_key(master_key, mac_nonce)
+    mk = mac.nonce_mac_key(master_key, mac_nonce)
     k_tags = mac.block_tags(k_ct, mk, hd // 2)   # [B, T, K, 1]
     v_tags = mac.block_tags(v_ct, mk, hd // 2)
     return k_ct, v_ct, k_tags, v_tags
@@ -145,6 +139,6 @@ def decode_attention(q, k_ct, v_ct, k_tags, v_tags, master_key, nonce_k,
     hd = q.shape[-1]
     key_k = cipher.derive_tensor_key(master_key, nonce_k)
     key_v = cipher.derive_tensor_key(master_key, nonce_v)
-    mkeys = mac.mac_keys(_mac_key(master_key, mac_nonce), hd // 2)
+    mkeys = mac.mac_keys(mac.nonce_mac_key(master_key, mac_nonce), hd // 2)
     return sealed_decode_attention(q, k_ct, v_ct, k_tags, v_tags, key_k,
                                    key_v, mkeys, t_valid, verify=verify)

@@ -1,7 +1,8 @@
-"""ModelConfig — the dense-transformer fields that serving reads.
+"""ModelConfig — the dense-transformer fields that serving and training
+read, and the training shape cell.
 
-A subset of ``repro.models.config.ModelConfig`` with the same field names
-and defaults; dtypes are names mapped to torch dtypes.
+A subset of ``repro.models.config`` with the same field names and
+defaults; dtypes are names mapped to torch dtypes.
 """
 from __future__ import annotations
 
@@ -49,3 +50,15 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str                     # train_4k (the one the port trains)
+    seq_len: int
+    global_batch: int
+    microbatch: int               # sequences per gradient-accumulation step
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, microbatch=16)

@@ -1,6 +1,7 @@
-"""Serving building blocks: norms, RoPE, blocked GQA attention, SwiGLU.
+"""Model building blocks: norms, RoPE, blocked GQA attention, SwiGLU and
+the cross-entropy loss.
 
-Torch port of the serving subset of ``repro.models.layers``, with the
+Torch port of the dense subset of ``repro.models.layers``, with the
 reference's layouts ([B, S, H, hd] queries, [B, T, K, hd] caches).  Scores,
 softmax and norms are computed in float32 as in the reference.  Parameter
 initializers take an explicit ``torch.Generator`` and device, and a
@@ -184,3 +185,20 @@ def swiglu_params(generator: torch.Generator, d_model: int, d_ff: int, dtype,
 
 def swiglu(p, x):
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# LM head / loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
+    """logits [B,S,V] (any float dtype), labels [B,S] int. Mean NLL."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()

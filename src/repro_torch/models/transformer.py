@@ -5,11 +5,14 @@ stacked [n_layers, ...].  ``init`` makes full-width random weights straight
 on the device, ``params_from_numpy`` carries the reference's ``init`` tree
 across so both packages compute on the same weights.
 
-Serving over a fixed-slot KV cache (token inputs): ``init_cache``,
-``prefill`` and ``decode_step``, with the reference's three decode branches
-— plain cache, sealed cache unsealed per layer, and sealed cache read by
-the sealed flash-decode kernel (``cfg.fused_sealed_attention``).  The paged
-engine (``serve/engine.py``) runs its own layer loop over the same blocks.
+Training (token inputs): ``loss`` — embed, ``backbone`` with each block
+recomputed in the backward pass (when autograd records), final norm,
+logits and the masked cross-entropy.  Serving over a fixed-slot KV cache:
+``init_cache``, ``prefill`` and ``decode_step``, with the reference's three
+decode branches — plain cache, sealed cache unsealed per layer, and sealed
+cache read by the sealed flash-decode kernel
+(``cfg.fused_sealed_attention``).  The paged engine (``serve/engine.py``)
+runs its own layer loop over the same blocks.
 
 Port specifics: the layer scan is a Python loop; ``pos`` and ``nonce`` of a
 cache are host ints; ``decode_step`` writes the new slot into the cache's
@@ -20,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..core import cipher
 from ..core.channel import resolve_device
@@ -73,11 +77,19 @@ def params_from_numpy(tree, device="cuda"):
     return _tensor_from_numpy(tree, device)
 
 
-def layer_params(params, l: int):
-    """Layer ``l``'s parameters out of the stacked [n_layers, ...] tree."""
-    return {name: (sub[l] if isinstance(sub, torch.Tensor)
-                   else {k: v[l] for k, v in sub.items()})
-            for name, sub in params["layers"].items()}
+def layer_stack(params) -> list[dict]:
+    """Every layer's parameters out of the stacked [n_layers, ...] tree:
+    one ``torch.unbind`` per stacked leaf.  (Selecting ``leaf[l]`` per
+    layer would make each select's backward write a zero-filled gradient
+    the size of the whole stack.)"""
+    views = {name: (sub.unbind(0) if isinstance(sub, torch.Tensor)
+                    else {k: v.unbind(0) for k, v in sub.items()})
+             for name, sub in params["layers"].items()}
+    n = len(next(iter(sub for sub in views.values()
+                      if isinstance(sub, tuple))))
+    return [{name: (sub[l] if isinstance(sub, tuple)
+                    else {k: v[l] for k, v in sub.items()})
+             for name, sub in views.items()} for l in range(n)]
 
 
 def _block(lp, cfg, x, positions, attend):
@@ -92,19 +104,51 @@ def _block(lp, cfg, x, positions, attend):
     return x + L.swiglu(lp["mlp"], h2), kept
 
 
-def backbone(params, cfg, x, positions):
-    """Causal forward through the layer stack (prefill, no cache read).
-    Returns (x, (k, v)) with k, v stacked [n_layers, B, S, K, hd]."""
+def _remat(fn):
+    """Keep only each block's input for the backward pass and run the block
+    again there (the reference's ``remat="full"``, ``jax.checkpoint``)."""
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
+def backbone(params, cfg, x, positions, remat: bool = False):
+    """Causal forward through the layer stack (training / prefill, no cache
+    read); ``remat``: recompute each block in the backward pass.  Returns
+    (x, (k, v)) with k, v stacked [n_layers, B, S, K, hd]."""
     def causal(q, k, v):
         return L.gqa_attention(q, k, v, causal=True,
                                q_block=cfg.q_block), (k, v)
 
+    f = lambda xx, lp: _block(lp, cfg, xx, positions, causal)  # noqa: E731
+    if remat:
+        f = _remat(f)
     ks, vs = [], []
-    for l in range(cfg.n_layers):
-        x, (k, v) = _block(layer_params(params, l), cfg, x, positions, causal)
+    for lp in layer_stack(params):
+        x, (k, v) = f(x, lp)
         ks.append(k)
         vs.append(v)
     return x, (torch.stack(ks), torch.stack(vs))
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params, cfg, batch):
+    """Token embeddings (the port's dense family has no frontend)."""
+    return params["embed"][batch["tokens"]].to(cfg.act_dtype)
+
+
+def loss(params, cfg, batch):
+    """Next-token CE. batch: tokens [B,S], labels [B,S] (-1 = masked)."""
+    x = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = backbone(params, cfg, x, positions,
+                    remat=torch.is_grad_enabled())
+    logits = logits_of(params, cfg, x)
+    labels = batch["labels"]
+    return L.softmax_xent(logits, torch.clamp(labels, min=0),
+                          mask=labels >= 0)
 
 
 # ---------------------------------------------------------------------------
@@ -162,9 +206,8 @@ def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
 
     batch: {"tokens": int [B, S]}.  seal_ctx: (key int32 [2], nonce int)
     seals the cache — the padding rows too, as the reference does."""
-    tokens = batch["tokens"]
-    x = params["embed"][tokens].to(cfg.act_dtype)
-    B, S = tokens.shape
+    x = _embed_inputs(params, cfg, batch)
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     x, (ks, vs) = backbone(params, cfg, x, positions)
     pad = max_len - S
@@ -196,7 +239,7 @@ def decode_step(params, cfg, cache, tokens, seal_ctx=None):
         raise ValueError("fused_sealed_attention requires bf16 activations")
     key = seal_ctx[0] if sealed else None
     dt = cfg.act_dtype
-    for l in range(cfg.n_layers):
+    for l, lp in enumerate(layer_stack(params)):
         if sealed:
             kc, vc = cache["k_ct"][l], cache["v_ct"][l]       # [B, T, K, hd]
             T, K = kc.shape[1], kc.shape[2]
@@ -243,7 +286,7 @@ def decode_step(params, cfg, cache, tokens, seal_ctx=None):
                 vc[:, pos:pos + 1] = cipher.seal_bits_slice(v, key, nv, rows)
             return a, None
 
-        x, _ = _block(layer_params(params, l), cfg, x, positions, attend)
+        x, _ = _block(lp, cfg, x, positions, attend)
     logits = logits_of(params, cfg, x)[:, 0]
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1

@@ -269,7 +269,7 @@ class PagedEngine:
         positions = start[:, None] + torch.arange(C, device=dev)[None, :]
         ext = torch.zeros((B, C, K, hd), dtype=cfg.act_dtype, device=dev)
         nk, nv = [], []
-        for l in range(Lc):
+        for l, lp in zip(range(Lc), transformer.layer_stack(params)):
             def attend(q, kn, vn, l=l):
                 # the cache grows by C rows so an insert at any start <= T
                 # stays in bounds; rows past a lane's last valid query are
@@ -281,8 +281,7 @@ class PagedEngine:
                 return L.gqa_attention(q, kc2, vc2, causal=True,
                                        q_block=cfg.q_block,
                                        base_pos=start), (kn, vn)
-            x, (kn, vn) = self._block(transformer.layer_params(params, l),
-                                      x, positions, attend)
+            x, (kn, vn) = self._block(lp, x, positions, attend)
             nk.append(kn)
             nv.append(vn)
 
@@ -561,7 +560,7 @@ class PagedEngine:
         x = params["embed"][tokens[:, None]].to(cfg.act_dtype)   # [B, 1, D]
         positions = seq_lens[:, None]
         nk, nv = [], []
-        for l in range(Lc):
+        for l, lp in zip(range(Lc), transformer.layer_stack(params)):
             def attend(q, kn, vn, l=l):
                 kc2, vc2 = kcache[l], vcache[l]     # updated in place
                 kc2[ar, seq_lens] = kn[:, 0]
@@ -571,8 +570,7 @@ class PagedEngine:
                 # open mode writes back just the new slot; legacy needs the
                 # full updated cache to re-seal the whole tail page
                 return a, ((kn, vn) if self.open_pages else (kc2, vc2))
-            x, (kk, vv) = self._block(transformer.layer_params(params, l),
-                                      x, positions, attend)
+            x, (kk, vv) = self._block(lp, x, positions, attend)
             nk.append(kk)
             nv.append(vv)
         tok = self._emit(params, x, ok_seq, active)

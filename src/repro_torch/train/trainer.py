@@ -1,0 +1,277 @@
+"""Training step builder — the paper's secure-offload loop (torch port of
+``repro.train.trainer``).
+
+One ``train_step`` is one accelerator "launch" in the paper's terms:
+  1. Sealed state (params + Adam moments) sits in untrusted device memory
+     as ciphertext.
+  2. The step unseals the params (decrypt + MAC verify), runs forward and
+     backward over ``n_accum`` microbatches, verifies every tag of the
+     moments, applies AdamW and re-seals with bumped nonces (freshness).
+  3. Everything written is gated on the verification predicate: a tampered
+     ciphertext yields poisoned (NaN) state, never silent computation.
+
+The function is the reference's; the order is chosen to fit a 2.6 B
+parameter state on one 80 GB card.  The reference holds the plaintext
+moments, the new state and its new ciphertext all at once (~121 GB for
+granite-3-2b).  Here the moments' tags are verified first, so ``ok`` is
+known before anything is written, and then each leaf is updated row slice
+by row slice: decrypt the slice of mu and nu, apply AdamW, gate, encrypt
+under the bumped nonce, and the leaf's new tags are taken over its new
+ciphertext.  With ``in_place=True`` the new ciphertext overwrites the old
+one and the state passed in is marked consumed: its leaves no longer match
+their nonces and tags, and a step from it would put a second plaintext
+under the next nonce's keystream, so unsealing it raises
+``ConsumedSealedTensor`` (a restart must restore a checkpoint; see
+``Supervisor.save_at_start``).  The default writes new tensors and leaves
+the state passed in intact.
+
+The batch may itself arrive sealed (Rule 1 ingestion).
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Callable
+
+import torch
+
+from ..core import cipher, mac
+from ..core import sealed as sealed_lib
+from ..core.channel import poison_unless
+from ..core.policy import Protection, SecurityConfig
+from ..kernels.ctr_cipher import ops as ctr_ops
+from ..kernels import common
+from ..optim import AdamW, TrainState
+
+# elements per row slice of the leaf-by-leaf update: 64 MiB of f32, so the
+# update's f32 transients stay a few hundred MiB for any leaf
+SLICE_ELEMS = 1 << 24
+
+
+def seal_state(state: TrainState, key, sec: SecurityConfig,
+               nonce_base: int = 0) -> TrainState:
+    """Seal a TrainState's tensors for device residency (once).
+
+    nonce_base: offset added to every region's nonce lanes — the epoch-bump
+    hook for re-sealing after the reseal-count guard (core/sealed.py) spends
+    a tree's lane budget.  Callers refreshing must pass a base that clears
+    all previously used lanes (e.g. refresh_count << 20).
+    """
+    if not sec.enabled:
+        return state
+    nb = int(nonce_base)
+    return TrainState(
+        step=state.step,
+        params=sealed_lib.seal_tree(state.params, key, sec.weights,
+                                    nb + (1 << 8)),
+        mu=sealed_lib.seal_tree(state.mu, key, sec.grads, nb + (1 << 16)),
+        nu=sealed_lib.seal_tree(state.nu, key, sec.grads, nb + (1 << 17)),
+    )
+
+
+def refresh_sealed_state(state: TrainState, key, sec: SecurityConfig,
+                         refresh_count: int) -> TrainState:
+    """Re-seal a sealed TrainState under fresh nonce lanes (epoch bump).
+
+    Verify + decrypt (raises on tamper — a corrupt state is never
+    re-signed), then seal again with a lane base no previous incarnation
+    has touched.  ``refresh_count`` MUST strictly increase across calls
+    under one key.  Use ``make_refresh_fn`` for the Supervisor wiring."""
+    plain = unseal_state_host(state, key, sec)
+    return seal_state(plain, key, sec, nonce_base=refresh_count << 20)
+
+
+def make_refresh_fn(key, sec: SecurityConfig) -> Callable:
+    """Supervisor ``refresh_fn`` with the refresh ordinal tracked inside —
+    each call re-seals under a strictly fresher nonce-lane base."""
+    counter = itertools.count(1)
+
+    def refresh(state: TrainState) -> TrainState:
+        return refresh_sealed_state(state, key, sec, next(counter))
+
+    return refresh
+
+
+def unseal_state_host(state: TrainState, key, sec: SecurityConfig) -> TrainState:
+    """Unseal the whole state (e.g. for export); raises on MAC failure."""
+    if not sec.enabled:
+        return state
+    params, ok1 = sealed_lib.unseal_tree(state.params, key)
+    mu, ok2 = sealed_lib.unseal_tree(state.mu, key)
+    nu, ok3 = sealed_lib.unseal_tree(state.nu, key)
+    if not bool(ok1 & ok2 & ok3):
+        raise RuntimeError("sealed train state failed integrity verification")
+    return TrainState(step=state.step, params=params, mu=mu, nu=nu)
+
+
+def _microbatches(batch_stack):
+    """A dict of [n_accum, B, ...] leaves, or a sequence of microbatch
+    dicts (which may be sealed trees)."""
+    if isinstance(batch_stack, dict):
+        n = next(iter(batch_stack.values())).shape[0]
+        return [{k: v[i] for k, v in batch_stack.items()} for i in range(n)]
+    return list(batch_stack)
+
+
+def _verified(st: sealed_lib.SealedTensor, key) -> torch.Tensor:
+    """The chunk tags of ``st`` check out (no decryption)."""
+    st.check_live()
+    if not st.spec.protection.authenticates:
+        return torch.ones((), dtype=torch.bool, device=st.ct.device)
+    mk = mac.nonce_mac_key(key, st.nonce, st.spec.mac_domain)
+    return mac.verify_block_tags(st.ct, mk, st.spec.chunk_words, st.tags,
+                                 st.spec.mac_domain).all()
+
+
+class _Lattice:
+    """A sealed leaf's ciphertext as its [rows, last] counter lattice, with
+    the tensor key of one nonce: decrypt / encrypt any row slice."""
+
+    def __init__(self, ct: torch.Tensor, key, nonce: int, spec):
+        self.ct2 = ct.reshape(-1, ct.shape[-1])
+        self.plain = spec.protection is Protection.NONE
+        self.tkey = (None if self.plain
+                     else cipher.derive_tensor_key(key, nonce)[None])
+
+    def xor(self, bits: torch.Tensor, r0: int) -> torch.Tensor:
+        if self.plain:
+            return bits
+        rows = torch.arange(r0, r0 + bits.shape[0], dtype=torch.int32,
+                            device=bits.device)[None]
+        return ctr_ops.ctr_xor(bits[None], self.tkey, rows)[0]
+
+
+def _reseal_update(opt: AdamW, key, ok, lr, c1, c2, scale, p, g,
+                   sp: sealed_lib.SealedTensor, sm: sealed_lib.SealedTensor,
+                   sv: sealed_lib.SealedTensor, in_place: bool):
+    """Update one leaf row slice by row slice and reseal params, mu and nu
+    under their bumped nonces (in place: into the old ciphertext, whose
+    SealedTensors are marked consumed first).  Returns the three new
+    SealedTensors."""
+    olds = (sp, sm, sv)
+    if in_place:
+        for st in olds:
+            st.consumed = True
+    nonces = [(st.nonce + 1) & common.M32 for st in olds]
+    outs = [st.ct if in_place else torch.empty_like(st.ct) for st in olds]
+    read = [_Lattice(st.ct, key, st.nonce, st.spec) for st in (sm, sv)]
+    write = [_Lattice(o, key, n, st.spec)
+             for o, n, st in zip(outs, nonces, olds)]
+    decay = p.dim() >= 2
+    last = p.shape[-1] if p.dim() else 1
+    p2, g2 = p.reshape(-1, last), g.reshape(-1, last)
+    step_rows = max(1, SLICE_ELEMS // last)
+    for r0 in range(0, p2.shape[0], step_rows):
+        r1 = min(r0 + step_rows, p2.shape[0])
+        m, v = (lat.xor(lat.ct2[r0:r1], r0).view(st.dtype)
+                for lat, st in zip(read, (sm, sv)))
+        gs = (g2[r0:r1].float() * scale).to(g.dtype)
+        new = opt.update_leaf(p2[r0:r1], gs, m, v, lr, c1, c2, decay)
+        new = poison_unless(ok, list(new))
+        for lat, x in zip(write, new):
+            bits = x.contiguous().view(lat.ct2.dtype)
+            lat.ct2[r0:r1] = lat.xor(bits, r0)
+    out = []
+    for o, n, st in zip(outs, nonces, olds):
+        tags = st.tags
+        if st.spec.protection.authenticates:
+            tags = mac.block_tags(o, mac.nonce_mac_key(key, n,
+                                                       st.spec.mac_domain),
+                                  st.spec.chunk_words, st.spec.mac_domain)
+        out.append(sealed_lib.SealedTensor(o, tags, n, st.dtype, st.spec))
+    return out
+
+
+def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
+                    in_place: bool = False):
+    """Build the train step.
+
+    model: family module (``loss(params, cfg, batch)``); opt: AdamW;
+    sec: SecurityConfig; key: int32 [2] cipher key (required if
+    sec.enabled); in_place: reseal into the old ciphertext (see the module
+    docstring).  The step takes (state, batch_stack) with batch_stack a
+    dict of [n_accum, B, S] tensors, or a list of microbatches that may be
+    sealed, and returns (new state, metrics).
+    """
+    sealed_mode = sec.enabled
+    if sealed_mode:
+        assert key is not None
+
+    def loss_fn(params, mb):
+        if sealed_mode and sealed_lib.is_sealed(next(iter(mb.values()))):
+            mb, _ = sealed_lib.unseal_tree(mb, key)
+        return model.loss(params, cfg, mb)
+
+    def train_step(state: TrainState, batch_stack):
+        if sealed_mode:
+            params, ok = sealed_lib.unseal_tree(state.params, key)
+        else:
+            params = state.params
+            ok = torch.ones((), dtype=torch.bool,
+                            device=state.step.device)
+        leaves = [p.detach().requires_grad_(True)
+                  for p in sealed_lib.tree_leaves(params)]
+        ptree = sealed_lib.tree_unflatten(params, leaves)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        l_sum = torch.zeros((), dtype=torch.float32, device=ok.device)
+        mbs = _microbatches(batch_stack)
+        for mb in mbs:
+            l = loss_fn(ptree, mb)
+            for a, g in zip(acc, torch.autograd.grad(l, leaves)):
+                a.add_(g.float())
+            l_sum = l_sum + l.detach()
+        loss = l_sum / len(mbs)
+        # mean over microbatches in f32, then the parameter dtype
+        grads = []
+        for i, p in enumerate(leaves):
+            grads.append((acc[i] / len(mbs)).to(p.dtype))
+            acc[i] = None
+        leaves = [p.detach() for p in leaves]
+        del ptree, params
+
+        if not sealed_mode:
+            plain = TrainState(step=state.step, params=state.params,
+                               mu=state.mu, nu=state.nu)
+            new_state, metrics = opt.apply(
+                plain, sealed_lib.tree_unflatten(state.params, grads))
+            metrics.update(loss=loss, seal_ok=ok)
+            return new_state, metrics
+
+        mus = sealed_lib.tree_leaves(state.mu)
+        nus = sealed_lib.tree_leaves(state.nu)
+        # every tag of the moments checks out before anything is written
+        ok = torch.stack([ok] + [_verified(st, key) for st in mus + nus]).all()
+        step, lr, c1, c2 = opt.scalars(state.step)
+        scale, gnorm = opt.clip(grads)
+        new = [[], [], []]
+        for i, (sp, sm, sv) in enumerate(zip(
+                sealed_lib.tree_leaves(state.params), mus, nus)):
+            for acc_tree, st in zip(new, _reseal_update(
+                    opt, key, ok, lr, c1, c2, scale, leaves[i], grads[i],
+                    sp, sm, sv, in_place)):
+                acc_tree.append(st)
+            leaves[i] = grads[i] = None
+        new_state = TrainState(
+            step=step,
+            params=sealed_lib.tree_unflatten(state.params, new[0]),
+            mu=sealed_lib.tree_unflatten(state.mu, new[1]),
+            nu=sealed_lib.tree_unflatten(state.nu, new[2]))
+        metrics = {"grad_norm": gnorm,
+                   "lr": torch.as_tensor(lr, dtype=torch.float32),
+                   "loss": loss, "seal_ok": ok}
+        return new_state, metrics
+
+    return train_step
+
+
+def make_eval_step(model, cfg, sec: SecurityConfig, key=None):
+    sealed_mode = sec.enabled
+
+    def eval_step(state: TrainState, batch):
+        params = state.params
+        if sealed_mode:
+            params, _ = sealed_lib.unseal_tree(params, key)
+        with torch.no_grad():
+            return model.loss(params, cfg, batch)
+
+    return eval_step

@@ -48,6 +48,27 @@ def test_sealed_attention_bound_counts_the_valid_rows(verify, ops):
     assert half["ops"] * 2 == ops
 
 
+@pytest.mark.parametrize("M, K, N, bytes_ms, ops_ms", [
+    (8192, 2048, 8192, 0.061, 0.058), (8192, 8192, 2048, 0.061, 0.144)])
+def test_sealed_matmul_bound_is_set_by_the_tensor_cores(M, K, N, bytes_ms,
+                                                        ops_ms):
+    """Granite's MLP products of one 8192-token microbatch: 2MKN FLOP at
+    989 TFLOP/s (0.278 ms) bound them, over the bytes of A, B, their tags
+    and C and the integer work the inputs need (one Threefry block per
+    four bf16, one MAC word per two); the kernel's 128-tile keystream
+    regeneration is 18.5 MKN (2/128) operations."""
+    b = chip_smoke.matmul_bound(M, K, N)
+    elems = M * K + K * N
+    assert b["ops"] == elems // 4 * 74 + elems // 2 * 20
+    assert b["bytes"] == 2 * elems + 2 * M * N + elems // 64
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(2 * M * K * N / 989e12 * 1e3)
+    assert 0.277 < b["bound_ms"] < 0.279
+    assert b["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3 < bytes_ms
+    assert b["ops"] / chip_smoke.INT32_OPS_PER_S * 1e3 < ops_ms
+    assert b["keystream_ops"] == pytest.approx(18.5 * M * K * N * 2 / 128)
+
+
 def test_refuses_to_run_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0

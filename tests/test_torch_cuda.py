@@ -15,6 +15,8 @@ from repro_torch.kernels.ctr_cipher import ops as ctr_ops  # noqa: E402
 from repro_torch.kernels.ctr_cipher import ref as ctr_ref  # noqa: E402
 from repro_torch.kernels.sealed_attention import ops as sa_ops  # noqa: E402
 from repro_torch.kernels.sealed_attention import ref as sa_ref  # noqa: E402
+from repro_torch.kernels.sealed_matmul import ops as smm_ops  # noqa: E402
+from repro_torch.kernels.sealed_matmul import ref as smm_ref  # noqa: E402
 from repro_torch.kernels.tree_mac import ops as mac_ops  # noqa: E402
 from repro_torch.kernels.tree_mac import ref as mac_ref  # noqa: E402
 
@@ -72,7 +74,7 @@ def sealed_cache(gen, B, T, K, G, hd):
     k_ct, v_ct, k_tags, v_tags = sa_ops.seal_cache(k, v, master, 3, 4)
     key_k = cipher.derive_tensor_key(master, 3)
     key_v = cipher.derive_tensor_key(master, 4)
-    mkeys = mac.mac_keys(sa_ops._mac_key(master, 3), hd // 2)
+    mkeys = mac.mac_keys(mac.nonce_mac_key(master, 3), hd // 2)
     return q, [k_ct, v_ct, k_tags, v_tags, key_k, key_v, mkeys]
 
 
@@ -112,3 +114,56 @@ def test_sealed_attention_kernel_counts_tamper_only_below_t_valid(
     expect = torch.zeros_like(bad)
     expect[1, 1] = want
     assert torch.equal(bad, expect)
+
+
+def sealed_operands(gen, M, K, N):
+    """bf16 A [M, K] and B [K, N] (granite-like scales), sealed for the
+    sealed matmul, with the kernel's keys: (atol, [a_ct, b_ct, tags_a,
+    tags_b, key_a, key_b, mkeys])."""
+    a = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    b = (torch.randn((K, N), generator=gen, device="cuda")
+         * K ** -0.5).bfloat16()
+    master = bits(gen, (2,), torch.int32)
+    a_ct, tags_a = smm_ops.seal_operand(a, master, 5, 128, mac_nonce=5)
+    b_ct, tags_b = smm_ops.seal_operand(b, master, 6, 128, mac_nonce=5)
+    atol = smm_ref.c_atol(K, a.float().abs().max().item(),
+                          b.float().abs().max().item())
+    return atol, [a_ct, b_ct, tags_a, tags_b,
+                  cipher.derive_tensor_key(master, 5),
+                  cipher.derive_tensor_key(master, 6),
+                  mac.mac_keys(mac.nonce_mac_key(master, 5), 128)]
+
+
+@pytest.mark.parametrize("verify", [False, True])
+@pytest.mark.parametrize("M, K, N", [
+    (256, 256, 256), (512, 256, 768), (256, 2048, 512), (2048, 512, 256),
+    (768, 1280, 2048), (2048, 2048, 2048)])
+def test_sealed_matmul_kernel_matches_plain_version(gen, M, K, N, verify):
+    """C within two bf16 ulps (``ref.C_RTOL``) plus ``ref.c_atol``; ``bad``
+    exact."""
+    atol, args = sealed_operands(gen, M, K, N)
+    before = smm_ops.sealed_matmul.launches
+    c, bad = smm_ops.sealed_matmul(*args, verify=verify)
+    torch.cuda.synchronize()
+    assert smm_ops.sealed_matmul.launches == before + 1
+    want, want_bad = smm_ref.sealed_matmul_ref(*args, verify)
+    assert torch.equal(bad, want_bad) and not bad.any()
+    assert smm_ref.c_excess(c, want, atol) <= 0
+
+
+@pytest.mark.parametrize("which, row, col", [
+    ("a", 17, 93), ("a", 700, 1000), ("b", 1000, 5), ("b", 3, 1535)])
+def test_sealed_matmul_kernel_counts_tamper_per_tile(gen, which, row, col):
+    """A flipped A bit counts once for every column tile of its row tile,
+    a flipped B bit once for every row tile of its chunk column."""
+    M, K, N = 768, 1024, 1536
+    _, args = sealed_operands(gen, M, K, N)
+    args[0 if which == "a" else 1][row, col] ^= 1 << 3
+    _, bad = smm_ops.sealed_matmul(*args)
+    _, want_bad = smm_ref.sealed_matmul_ref(*args)
+    expect = torch.zeros_like(bad)
+    if which == "a":
+        expect[row // 256, :] = 1
+    else:
+        expect[:, col // 256] = 1
+    assert torch.equal(bad, want_bad) and torch.equal(bad, expect)

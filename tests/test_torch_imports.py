@@ -10,17 +10,27 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
+# the modules of each slice, which the walk below must reach
+SLICE_MODULES = (
+    "repro_torch.serve.engine", "repro_torch.launch.serve",
+    "repro_torch.kernels.sealed_matmul.ops",
+    "repro_torch.kernels.sealed_matmul.ref", "repro_torch.optim.adamw",
+    "repro_torch.optim.schedule", "repro_torch.data.pipeline",
+    "repro_torch.train.trainer", "repro_torch.train.checkpoint",
+    "repro_torch.train.fault", "repro_torch.launch.train")
+
 PROBE = """
 import pkgutil, sys
-import repro_torch, repro_torch.serve.engine
+import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(m.name)
+missing = [m for m in %r if m not in sys.modules]
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "repro" or n.startswith("repro."))
-print("LOADED", bad)
-sys.exit(1 if bad else 0)
-"""
+print("LOADED", bad, "MISSING", missing)
+sys.exit(1 if bad or missing else 0)
+""" % (SLICE_MODULES,)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -28,7 +38,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     proc = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "LOADED []" in proc.stdout
+    assert "LOADED [] MISSING []" in proc.stdout
 
 
 def test_port_sources_never_name_jax_or_the_reference():

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.sealed_attention import ops as jsa  # noqa: E402
+from repro_torch.core import mac as tmac  # noqa: E402
 from repro_torch.kernels.sealed_attention import ops as tsa  # noqa: E402
 from repro_torch.kernels.sealed_attention import ref as tsa_ref  # noqa: E402
 
@@ -83,7 +84,7 @@ def test_sealed_attention_matches_reference(tv):
     o_t, b_t = tsa.decode_attention(q[1], *tc, tkey, 3, 4, tv)
     assert tsa.sealed_decode_attention.launches == launches   # CPU: plain
     o_m, b_m = tsa_ref.sealed_decode_attention_ref(
-        q[1], *tc, tkey, 3, 4, tsa._mac_key(tkey, 3), tv)
+        q[1], *tc, tkey, 3, 4, tmac.nonce_mac_key(tkey, 3), tv)
     assert o_t.dtype == torch.bfloat16 and tuple(o_t.shape) == (B, K, G, hd)
     for o in (o_ref, o_int):
         np.testing.assert_allclose(f32(o_t), f32(o), rtol=tsa_ref.OUT_RTOL,
@@ -146,7 +147,7 @@ def test_plain_versions_agree_at_any_length(T, tv):
     q, _, tc = sealed_pair(B, T, K, G, hd, 5, 6, seed=3)
     tkey = t_of(KEY)
     o_m, b_m = tsa_ref.sealed_decode_attention_ref(
-        q[1], *tc, tkey, 5, 6, tsa._mac_key(tkey, 5), tv)
+        q[1], *tc, tkey, 5, 6, tmac.nonce_mac_key(tkey, 5), tv)
     o_t, b_t = tsa.decode_attention(q[1], *tc, tkey, 5, 6, tv)
     assert torch.equal(b_t, b_m)
     np.testing.assert_allclose(f32(o_t), f32(o_m), atol=1e-6)
