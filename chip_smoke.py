@@ -86,15 +86,24 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # folds and the +1, a 64-bit product with two folds, and the 64-bit add.
 CTR_OPS_PER_BLOCK = 20 * 3 + 5 * 2 + 2 + 2
 MAC_OPS_PER_WORD = 20
+# Of a Threefry block's 74, only the 20 rotates (SHF) and 22 XORs (LOP3)
+# must issue on the ALU pipe; the 32 adds can issue as IMAD on the FMA pipe
+# beside them (ptxas puts most there: the SASS mix below).  A MAC word's
+# 64-bit product issues as IMAD.WIDE on the FMA pipe; its folds, +1 and
+# 64-bit adds take 14 ALU-pipe instructions (LOP3, SHF, LEA, IADD3), read
+# in the SASS of verify_chunks_kernel's four words a lane (mac_word_alu_ops
+# prints 14.5: one of its 58 is the lane test).  So the least time of a
+# block is 42 operations and of a word 14 at the 64 INT32 lanes; the bound
+# uses those, and keeps the figure with all 74 and 20 on the ALU pipe
+# beside it as bound_ms_74.
+CTR_ALU_OPS_PER_BLOCK = 20 + 20 + 2
+MAC_ALU_OPS_PER_WORD = 14
 # float32 outside the tensor cores (data sheet), for the attention's dot
 # products in the sealed-attention kernel
 F32_FLOPS_PER_S = 67e12
 
 # dense bf16 on the tensor cores (data sheet), for the sealed matmul
 BF16_FLOPS_PER_S = 989e12
-# the sealed matmul's own output tile (csrc/sealed_matmul.cu BM = BN): every
-# block regenerates the keystream of the A and B tiles it reads
-MATMUL_TILE = 128
 
 N_PAGES, PAGE, CHUNK_WORDS = 64, 16, 128
 SLOTS, MAX_PAGES, PREFILL_CHUNK = 4, 8, 64
@@ -123,6 +132,43 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def kernel_name(mangled: str) -> str:
+    """"sealed_matmul_kernel<4,2>" from the mangled name of a kernel."""
+    import re
+    base = re.search(r"\d+([a-z_]+(?:kernel|split|combine))", mangled)
+    args = re.findall(r"Li(\d+)E", mangled)
+    return (base.group(1) if base else mangled) + (
+        f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, shared memory and spills of each kernel in one source's
+    nvcc -Xptxas -v output: {"kernel<template args>": "ptxas line; spill
+    line"}."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = kernel_name(ln.split("'")[1])
+        elif fn and "spill stores" in ln:
+            out[fn] = ln.strip()
+        elif fn and "Used" in ln and "registers" in ln:
+            out[fn] = ln.split(":", 1)[1].strip() + "; " + out.get(fn, "")
+    return out
+
+
+def mac_word_alu_ops(funcs: dict) -> float:
+    """ALU-pipe instructions per MAC word in sealed_matmul.cu's
+    verify_chunks_kernel (``build.sass_opcodes`` of its SASS): each lane
+    tags four words in straight-line code between its last load and its
+    first shuffle, the final folds of its sum included."""
+    from repro_torch.kernels import build
+
+    ops = next(o for fn, o in funcs.items() if "verify_chunks_kernel" in fn)
+    end = ops.index("SHFL")
+    start = max(i for i in range(end) if ops[i] == "LDG") + 1
+    return sum(op in build.ALU_OPCODES for op in ops[start:end]) / 4
+
+
 def device_ms(fn, reps: int = 10) -> float:
     """Median device time of ``fn`` (CUDA events) after one warm-up call."""
     fn()
@@ -147,11 +193,12 @@ def device_events(prof):
     return [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
 
 
-def device_busy_ms(fn, reps: int = 20) -> float:
-    """Device time of ``fn`` per call: its kernels' own times under
-    torch.profiler over ``reps`` calls, after one warm-up call.  Unlike
-    CUDA events around one call, it leaves out the host time between
-    launches."""
+def device_busy(fn, reps: int = 20) -> tuple[float, float]:
+    """Device time of ``fn`` per call and kernel rows seen per call: its
+    kernels' own times under torch.profiler over ``reps`` calls, after one
+    warm-up call.  Unlike CUDA events around one call, it leaves out the
+    host time between launches; the kernel count shows whether the
+    profiler kept every launch."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -161,8 +208,38 @@ def device_busy_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 \
-        / reps
+    events = device_events(prof)
+    return (sum(e.self_device_time_total for e in events) / 1e3 / reps,
+            sum(e.count for e in events) / reps)
+
+
+def device_busy_ms(fn, reps: int = 20) -> float:
+    return device_busy(fn, reps)[0]
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn`` per call from CUDA-event timing of a CUDA graph
+    of ``reps`` calls, replayed five times: the kernels back to back with
+    no host time between them and no profiler."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (5 * reps)
 
 
 def kernel_checks(sealed, provider_key):
@@ -204,11 +281,12 @@ def kernel_checks(sealed, provider_key):
         words = -(-e * x.element_size() // 4)
         blocks = n * r * ((words + 1) // 2)
         nbytes = 2 * x.numel() * x.element_size()
-        b, by = bound(nbytes, blocks * CTR_OPS_PER_BLOCK)
+        b, by = bound(nbytes, blocks * CTR_ALU_OPS_PER_BLOCK)
         results["ctr_cipher"].append(dict(
             shape=name, dims=list(x.shape), mismatches=mism,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-            ops=blocks * CTR_OPS_PER_BLOCK, bound_ms=b, bound_by=by,
+            ops=blocks * CTR_OPS_PER_BLOCK,
+            alu_ops=blocks * CTR_ALU_OPS_PER_BLOCK, bound_ms=b, bound_by=by,
             per_step=step_share))
         torch.cuda.empty_cache()
 
@@ -223,11 +301,13 @@ def kernel_checks(sealed, provider_key):
         n, r, e = x.shape
         words = n * r * (-(-e * x.element_size() // 4))
         nbytes = x.numel() * x.element_size() + out.numel() * 4
-        b, by = bound(nbytes, words * MAC_OPS_PER_WORD)
+        b, by = bound(nbytes, words * MAC_ALU_OPS_PER_WORD)
         results["tree_mac"].append(dict(
             shape=name, dims=list(x.shape), cw=cw, mismatches=mism,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-            ops=words * MAC_OPS_PER_WORD, bound_ms=b, bound_by=by,
+            ops=words * MAC_OPS_PER_WORD,
+            alu_ops=words * MAC_ALU_OPS_PER_WORD,
+            bound_ms=b, bound_by=by,
             per_step=step_share))
         del out
         torch.cuda.empty_cache()
@@ -395,18 +475,24 @@ def attention_bound(B, K, G, hd, t_valid, verify):
     """Bytes, operations and bound of one sealed-attention call: q read and
     the output written once, each valid K and V row (and its tag when
     verifying) read once; per valid row hd/4 Threefry blocks (and hd/2 MAC
-    words when verifying) of integer work, plus the f32 dot products."""
+    words when verifying) of integer work, plus the f32 dot products.  The
+    bound counts the ALU-pipe operations (alu_ops); bound_ms_74 counts all
+    74 of a Threefry block and 20 of a MAC word on the ALU pipe."""
     rows = B * t_valid * K
     nbytes = (2 * B * K * G * hd * 2 + 2 * rows * hd * 2 + B * K * 4
               + (2 * rows * 4 if verify else 0))
     ops = 2 * rows * (hd // 4) * CTR_OPS_PER_BLOCK
+    alu = 2 * rows * (hd // 4) * CTR_ALU_OPS_PER_BLOCK
     if verify:
         ops += 2 * rows * (hd // 2) * MAC_OPS_PER_WORD
+        alu += 2 * rows * (hd // 2) * MAC_ALU_OPS_PER_WORD
     flops = 4 * B * K * G * t_valid * hd
     # the INT32 and FP32 pipes issue side by side, so the slower one bounds
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = max(ops / INT32_OPS_PER_S, flops / F32_FLOPS_PER_S) * 1e3
-    return dict(bytes=nbytes, ops=ops, flops=flops, bound_ms=max(tb, to),
+    to = max(alu / INT32_OPS_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    to74 = max(ops / INT32_OPS_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    return dict(bytes=nbytes, ops=ops, alu_ops=alu, flops=flops,
+                bound_ms=max(tb, to), bound_ms_74=max(tb, to74),
                 bound_by="bytes" if tb >= to else "operations")
 
 
@@ -424,10 +510,12 @@ def sdpa_call(q4, kd, vd, t_valid):
 
 
 def timings(kernel, plain, library) -> dict:
-    """The kernel's and the library call's device time per call (profiler)
-    and their CUDA-event time around one call (host time included), and
-    the plain version's CUDA-event time."""
-    return dict(ms=device_busy_ms(kernel), event_ms=device_ms(kernel),
+    """The kernel's and the library call's device time per call (profiler,
+    with the kernel rows it saw per call) and their CUDA-event time around
+    one call (host time included), and the plain version's CUDA-event
+    time."""
+    ms, seen = device_busy(kernel)
+    return dict(ms=ms, kernels_per_call=seen, event_ms=device_ms(kernel),
                 library_ms=device_busy_ms(library),
                 library_event_ms=device_ms(library),
                 plain_ms=device_ms(plain, reps=3))
@@ -472,6 +560,8 @@ def attention_checks():
                       f"sealed_attention bad counts wrong at {name}")
                 cases.append(dict(
                     shape=name, max_abs_err=err,
+                    graph_ms=graph_ms(lambda: sa_ops.sealed_decode_attention(
+                        *args, verify=verify)),
                     **timings(
                         lambda: sa_ops.sealed_decode_attention(
                             *args, verify=verify),
@@ -513,20 +603,28 @@ def matmul_bound(M, K, N, verify=True):
     tags) read once and C written once; per four bf16 of A and B one
     Threefry block and, verifying, per two one MAC word; 2MKN FLOP on the
     tensor cores.  The integer pipe and the tensor cores run side by
-    side, so the slower one bounds the operations."""
+    side, so the slower one bounds the operations (ALU-pipe operations, as
+    in attention_bound; bound_ms_74 with all 74 and 20).  keystream_ops is
+    the kernel's own floor: the keystream its 128 x 256 blocks regenerate in
+    clusters of cluster[0] x cluster[1] (ops.keystream_ops)."""
+    from repro_torch.kernels.sealed_matmul import ops as smm_ops
+
     elems = M * K + K * N
     nbytes = 2 * elems + 2 * M * N + (4 * elems // 256 if verify else 0)
     ops = elems // 4 * CTR_OPS_PER_BLOCK
+    alu = elems // 4 * CTR_ALU_OPS_PER_BLOCK
     if verify:
         ops += elems // 2 * MAC_OPS_PER_WORD
+        alu += elems // 2 * MAC_ALU_OPS_PER_WORD
     flops = 2 * M * K * N
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = max(ops / INT32_OPS_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
-    # the kernel's own floor: each block regenerates its tiles' keystream
-    regen = CTR_OPS_PER_BLOCK / 4 * M * K * N * 2 / MATMUL_TILE
-    return dict(bytes=nbytes, ops=ops, flops=flops, bound_ms=max(tb, to),
+    to = max(alu / INT32_OPS_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    to74 = max(ops / INT32_OPS_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    return dict(bytes=nbytes, ops=ops, alu_ops=alu, flops=flops,
+                bound_ms=max(tb, to), bound_ms_74=max(tb, to74),
                 bound_by="bytes" if tb >= to else "operations",
-                keystream_ops=regen)
+                keystream_ops=smm_ops.keystream_ops(M, K, N),
+                cluster=list(smm_ops.cluster_shape(M, N)))
 
 
 def matmul_checks(sealed, provider_key):
@@ -749,16 +847,27 @@ def fixed_phase(cfg, sealed, provider):
           f"{err_unfused} (unfused path)")
     kd = cipher.unseal_bits(kc, key, nk, torch.bfloat16)
     vd = cipher.unseal_bits(vc, key, nv, torch.bfloat16)
+    def kernel():
+        return sa_ops.sealed_decode_attention(*args, verify=False)
+
+    sdpa = sdpa_call(q4, kd, vd, tval)
     layer = dict(
         t_valid=tval, max_abs_err=err, max_abs_err_vs_unfused=err_unfused,
         fused_event_ms=device_ms(fused_layer),
         unfused_event_ms=device_ms(unfused),
-        unfused_ms=device_busy_ms(unfused),
-        **timings(lambda: sa_ops.sealed_decode_attention(*args, verify=False),
+        **dict(zip(("unfused_ms", "unfused_kernels_per_call"),
+                   device_busy(unfused))),
+        **timings(kernel,
                   lambda: sa_ref.sealed_decode_attention_words_ref(*args,
                                                                    False),
-                  sdpa_call(q4, kd, vd, tval)),
+                  sdpa),
         **attention_bound(B, K, G, hd, tval, False))
+    # This late in the run the profiler keeps only part of the launches
+    # (kernels_per_call < 1), so the layer's device times are taken from a
+    # CUDA graph of the calls; the profiler's are kept beside them.
+    layer.update(profiler_ms=layer["ms"], ms=graph_ms(kernel),
+                 library_profiler_ms=layer["library_ms"],
+                 library_ms=graph_ms(sdpa))
     del kd, vd, cache, rec["cache"]
 
     # a flipped weight bit poisons every lane of the fused engine
@@ -1075,6 +1184,27 @@ def main() -> int:
             for n, log in build.build_log.items()}
     print(f"build: {time.perf_counter() - t0:.1f} s for {list(build.SOURCES)};"
           f" ptxas {json.dumps(regs)}", flush=True)
+    # the redesigned kernels' registers, shared memory and spills, and the
+    # SASS opcode mix of every kernel (IADD3/LOP3/SHF/LEA/PRMT on the ALU
+    # pipe, IMAD on the FMA pipe): a Threefry block has 20 rotates (SHF)
+    for name in ("sealed_matmul", "sealed_attention"):
+        print(f"ptxas {name}: "
+              f"{json.dumps(ptxas_report(build.build_log.get(name, '')))}",
+              flush=True)
+    smem = build.library("sealed_matmul").sealed_matmul_smem_bytes
+    print("sealed_matmul dynamic shared memory by cluster (M x N): "
+          + json.dumps({f"{cm}x{cn}": smem(cm, cn)
+                        for cm, cn in ((4, 2), (4, 1), (2, 2), (2, 1))}),
+          flush=True)
+    sass = {}
+    for name in build.SOURCES:
+        for fn, mix in build.sass_mix(name).items():
+            sass[f"{name}: {kernel_name(fn)}"] = mix
+    print(f"sass mix {json.dumps(sass)}", flush=True)
+    print(f"MAC word on the ALU pipe: "
+          f"{mac_word_alu_ops(build.sass('sealed_matmul'))} instructions in "
+          f"verify_chunks_kernel (the bound counts {MAC_ALU_OPS_PER_WORD})",
+          flush=True)
 
     # 2. weights: full-width granite-3-2b, sealed by the provider ---------
     cfg = configs.get_config("granite-3-2b")
@@ -1108,7 +1238,9 @@ def main() -> int:
     for c in attn_cases:
         print(f"check sealed_attention [8 x 8 kv heads x 4 x 64] {c['shape']}: "
               f"max abs err {c['max_abs_err']:.3g}, kernel {c['ms']:.4f} ms "
-              f"device ({c['event_ms']:.4f} ms events), plain "
+              f"device ({c['kernels_per_call']:.2f} kernels a call seen; "
+              f"{c['graph_ms']:.4f} ms in a CUDA graph; "
+              f"{c['event_ms']:.4f} ms events), plain "
               f"{c['plain_ms']:.3f} ms, sdpa over plaintext "
               f"{c['library_ms']:.4f} ms device ({c['library_event_ms']:.4f}"
               f" ms events), bound {c['bound_ms']:.4f} ms ({c['bound_by']})",
@@ -1125,12 +1257,14 @@ def main() -> int:
     for c in mm["mlp"]:
         print(f"check sealed_matmul {c['shape']}: max abs err "
               f"{c['max_abs_err']:.3g} (atol {c['atol']:.3g}), kernel "
-              f"{c['ms']:.4f} ms device ({c['event_ms']:.4f} ms events), "
+              f"{c['ms']:.4f} ms device ({c['kernels_per_call']:.2f} kernels"
+              f" a call seen; {c['event_ms']:.4f} ms events), "
               f"plain {c['plain_ms']:.3f} ms, torch.matmul over plaintext "
               f"{c['library_ms']:.4f} ms device ({c['library_event_ms']:.4f}"
               f" ms events), bound {c['bound_ms']:.4f} ms ({c['bound_by']});"
-              f" keystream work at {MATMUL_TILE}x{MATMUL_TILE} tiles "
-              f"{c['keystream_ops'] / 1e9:.1f} G ops", flush=True)
+              f" cluster {c['cluster'][0]}x{c['cluster'][1]} of 128x256 "
+              f"blocks, keystream work {c['keystream_ops'] / 1e9:.1f} G ops",
+              flush=True)
     print(f"check sealed_matmul tamper bad grids {json.dumps(mm['tamper'])}"
           f"; limit rejects the faulty controls, excess "
           f"{json.dumps(mm['controls'])}; entry point over the MLP products "
@@ -1206,13 +1340,19 @@ def main() -> int:
           f"equal, first decode logits max abs diff {logit_err:.4g}; first "
           f"tokens {plain_run['tokens'][:, 0].tolist()}", flush=True)
     print(f"fixed: one layer at t_valid {layer['t_valid']}: kernel "
-          f"{layer['ms']:.4f} ms device ({layer['event_ms']:.4f} ms events),"
+          f"{layer['ms']:.4f} ms device in a CUDA graph (profiler "
+          f"{layer['profiler_ms']:.4f} ms with "
+          f"{layer['kernels_per_call']:.2f} kernels a call seen; "
+          f"{layer['event_ms']:.4f} ms events),"
           f" fused with key derivation {layer['fused_event_ms']:.4f} ms "
           f"events, CTR unseal + plain attention {layer['unfused_ms']:.4f} "
-          f"ms device ({layer['unfused_event_ms']:.4f} ms events), plain "
+          f"ms device (profiler, {layer['unfused_kernels_per_call']:.1f} "
+          f"kernels a call seen; {layer['unfused_event_ms']:.4f} ms events),"
+          f" plain "
           f"version {layer['plain_ms']:.3f} ms events, sdpa over plaintext "
-          f"{layer['library_ms']:.4f} ms device "
-          f"({layer['library_event_ms']:.4f} ms events), bound "
+          f"{layer['library_ms']:.4f} ms device in a CUDA graph (profiler "
+          f"{layer['library_profiler_ms']:.4f} ms; "
+          f"{layer['library_event_ms']:.4f} ms events), bound "
           f"{layer['bound_ms']:.4f} ms ({layer['bound_by']}); max abs err "
           f"{layer['max_abs_err']:.3g} (plain version), "
           f"{layer['max_abs_err_vs_unfused']:.3g} (unfused path); weight "
@@ -1279,7 +1419,8 @@ def main() -> int:
         plain = sum(c["plain_ms"] * c["per_step"] for c in step)
         nbytes = sum(c["bytes"] * c["per_step"] for c in step)
         ops = sum(c["ops"] * c["per_step"] for c in step)
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        alu = sum(c["alu_ops"] * c["per_step"] for c in step)
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, alu / INT32_OPS_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
@@ -1288,6 +1429,7 @@ def main() -> int:
             "mismatches": sum(c["mismatches"] for c in cases),
             "ms": ms, "plain_ms": plain, "bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
+            "bound_ms_74": max(tb, ops / INT32_OPS_PER_S * 1e3),
             "library_ms": None,
             "workload": "weight tree + k and v page-batch gathers of one "
                         "decode step",
@@ -1310,8 +1452,11 @@ def main() -> int:
         "tolerance": {"rtol": sa_ref.OUT_RTOL, "atol": sa_ref.OUT_ATOL},
         "control_max_abs_err": attn_controls,
         "ms": layer["ms"] * n_l, "event_ms": layer["event_ms"] * n_l,
+        "profiler_ms": layer["profiler_ms"] * n_l,
+        "profiler_kernels_per_call": layer["kernels_per_call"],
         "plain_ms": layer["plain_ms"] * n_l,
         "bound_ms": layer["bound_ms"] * n_l, "bound_by": layer["bound_by"],
+        "bound_ms_74": layer["bound_ms_74"] * n_l,
         "library_ms": layer["library_ms"] * n_l,
         "library_event_ms": layer["library_event_ms"] * n_l,
         "library_call": "F.scaled_dot_product_attention over the decrypted "
@@ -1329,7 +1474,7 @@ def main() -> int:
     n_mlp = len(mm["mlp"])
     times = {k: sum(c[k] for c in mm["mlp"])
              for k in ("ms", "event_ms", "plain_ms", "library_ms",
-                       "library_event_ms", "bound_ms")}
+                       "library_event_ms", "bound_ms", "bound_ms_74")}
     kernels.append({
         "name": "sealed_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/sealed_matmul.cu",
@@ -1347,7 +1492,7 @@ def main() -> int:
         "keystream_ops": sum(c["keystream_ops"] for c in mm["mlp"]),
         "shapes": [{k: c[k] for k in ("shape", "ms", "event_ms", "plain_ms",
                                       "library_ms", "bound_ms", "bound_by",
-                                      "keystream_ops")}
+                                      "keystream_ops", "cluster")}
                    for c in mm["mlp"]]})
     by_path = {"paged": launches, "fixed_unfused": plain_run["launches"],
                "fixed_fused": fused_run["launches"],

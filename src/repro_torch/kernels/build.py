@@ -69,6 +69,47 @@ def build_all() -> None:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
+# the integer opcodes of the Threefry and MAC arithmetic: IADD3, LOP3, SHF,
+# LEA and PRMT issue on the ALU pipe, IMAD (any form) on the FMA pipe
+ALU_OPCODES = ("IADD3", "LOP3", "SHF", "LEA", "PRMT")
+SASS_OPCODES = ALU_OPCODES + ("IMAD",)
+
+
+def sass(name: str) -> dict[str, list[str]]:
+    """The SASS of every kernel of ``lib<name>.so`` (cuobjdump -sass; built
+    on first use): {function: [opcode of each instruction, in order]}."""
+    library(name)
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    return sass_opcodes(out)
+
+
+def sass_opcodes(text: str) -> dict[str, list[str]]:
+    """cuobjdump -sass text -> {function: [opcode, ...]}, each opcode
+    without its modifiers or predicate (``@P0 LOP3.LUT ...`` -> LOP3)."""
+    funcs: dict[str, list[str]] = {}
+    ops = None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            ops = funcs.setdefault(line.split(":", 1)[1].strip(), [])
+        elif ops is not None and line.startswith("/*") and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words and words[0][:1].isalpha():
+                ops.append(words[0].split(".")[0])
+    return funcs
+
+
+def sass_mix(name: str) -> dict[str, dict[str, int]]:
+    """How often each of SASS_OPCODES occurs in the SASS of every kernel of
+    ``lib<name>.so``: {function: {opcode: count}}."""
+    return {fn: {op: ops.count(op) for op in SASS_OPCODES}
+            for fn, ops in sass(name).items()}
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu`` (built on first use)."""
     lib = _libs.get(name)

@@ -9,7 +9,7 @@ derive the tensor keys and the MAC key from a master key and nonces.
 from __future__ import annotations
 
 import ctypes
-import math
+import functools
 
 import torch
 
@@ -18,25 +18,90 @@ from .. import build
 from .ref import sealed_decode_attention_words_ref
 
 MAX_GROUP = 16      # query heads per KV head (shared memory per block)
+KERNEL_HEAD_DIMS = (32, 64, 128)   # head_dim the CUDA kernel takes
+# csrc/sealed_attention.cu: warps per block, rows of K and V per lane
+WARPS, ROWS_PER_LANE = 4, 4
 
 
 def _launcher():
     fn = build.library("sealed_attention").sealed_attention_launch
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 11 + [i32] * 8 + [ctypes.c_float, i32, vp]
+        fn.argtypes = [vp] * 12 + [i32] * 8 + [ctypes.c_float, i32, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def chunk_rows(hd: int) -> int:
-    """Cache rows per block of the kernel (its split of T)."""
-    return min(256, 4096 // hd)
+    """Cache rows of one warp's group in the kernel (its tile of T): lane l
+    holds Threefry block l % (hd/4) of rows l // (hd/4) + (128/hd) e, e < 4."""
+    return ROWS_PER_LANE * 32 // (hd // 4)
+
+
+def split_plan(B: int, K: int, t_valid: int, hd: int, slots: int):
+    """(n_split, chunk): the kernel's grid cuts T into n_split blocks of
+    ``chunk`` rows (whole groups) per (b, k).  B K n_split stays within
+    ``slots`` (the blocks the card holds at once) where it can, so the grid
+    is at most one wave, and no split has fewer groups than the block has
+    warps."""
+    rows = chunk_rows(hd)
+    groups = max(1, -(-t_valid // rows))
+    per_pair = max(1, min(-(-groups // WARPS), slots // (B * K)))
+    chunk = -(-groups // per_pair) * rows
+    return max(1, -(-t_valid // chunk)), chunk
+
+
+_sync: dict = {}     # device -> the kernel's scratch (see _sync_buffer)
+_sync_retired: list = []   # outgrown scratch that a CUDA graph may hold
+
+
+def _sync_buffer(device, pairs: int, capturing: bool = False) -> torch.Tensor:
+    """The kernel's int32 scratch of 2 per (b, k) pair (its blocks' ticket
+    and bad count): zero when made, and every launch leaves it zero, so
+    one buffer per device serves every call in turn (no memset per launch).
+
+    Launches that share it must not overlap: their tickets would mix, and
+    ``out`` and ``bad`` could be left unwritten.  So the kernel is not safe
+    on two streams of one device at once, nor beside a replay of a CUDA
+    graph that holds it.  An outgrown buffer is kept, never freed, since a
+    graph may still hold it; a buffer cannot be made during a capture
+    (its zeros would be written only at replay), so ``capturing`` raises
+    where one would be."""
+    buf = _sync.get(device)
+    if buf is None or buf.numel() < 2 * pairs:
+        if capturing:
+            raise RuntimeError("sealed_decode_attention: call it once at "
+                               "this B * K before capturing a CUDA graph")
+        if buf is not None:
+            _sync_retired.append(buf)
+        buf = _sync[device] = torch.zeros(2 * pairs, dtype=torch.int32,
+                                          device=device)
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(device, hd: int, G: int) -> int:
+    """Blocks of the kernel the card holds at once at (hd, G)."""
+    lib = build.library("sealed_attention")
+    fn = lib.sealed_attention_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    per_sm = fn(hd, G)
+    if per_sm <= 0:
+        raise RuntimeError(f"sealed_attention kernel does not fit hd {hd}, "
+                           f"G {G} on an SM")
+    return per_sm * torch.cuda.get_device_properties(device) \
+        .multi_processor_count
 
 
 def sealed_decode_attention(q, k_ct, v_ct, k_tags, v_tags, key_k, key_v,
                             mkeys, t_valid: int, *, verify: bool = True):
     """Flash-decode over a sealed cache.
+
+    On a CUDA tensor one launch on PyTorch's current stream computes the
+    output and ``bad``: the last of its blocks for each (b, k) writes them,
+    counted through a scratch per device that launches share in turn, so
+    calls on one device must not run on two streams at once (see
+    ``_sync_buffer``).
 
     q bf16 [B, K, G, hd]; k_ct/v_ct int16 [B, T, K, hd] (bf16 ciphertext
     bits); k_tags/v_tags int32 [B, T, K, 1] (None when ``verify`` is off);
@@ -84,10 +149,14 @@ def sealed_decode_attention(q, k_ct, v_ct, k_tags, v_tags, key_k, key_v,
     if q.device.type != "cuda":
         raise ValueError(f"sealed_decode_attention runs on cpu or cuda, not "
                          f"{q.device}")
-    chunk = chunk_rows(hd)
-    n_split = max(1, math.ceil(t_valid / chunk))
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the CUDA kernel takes "
+                         f"{KERNEL_HEAD_DIMS}")
+    n_split, chunk = split_plan(B, K, t_valid, hd, _slots(q.device, hd, G))
     out = torch.empty((B, K, G, hd), dtype=torch.bfloat16, device=q.device)
-    bad = torch.zeros((B, K), dtype=torch.int32, device=q.device)
+    bad = torch.empty((B, K), dtype=torch.int32, device=q.device)
+    sync = _sync_buffer(q.device, B * K,
+                        torch.cuda.is_current_stream_capturing())
     part = torch.empty((B * K * n_split * G * (hd + 2),), dtype=torch.float32,
                        device=q.device)
 
@@ -107,7 +176,8 @@ def sealed_decode_attention(q, k_ct, v_ct, k_tags, v_tags, key_k, key_v,
             ptr(k_tags) if verify else None, ptr(v_tags) if verify else None,
             key_k.data_ptr(), key_v.data_ptr(),
             ptr(mkeys) if verify else None, out.data_ptr(), bad.data_ptr(),
-            part.data_ptr(), B, T, K, G, hd, t_valid, chunk, n_split,
+            part.data_ptr(), sync.data_ptr(), B, T, K, G, hd, t_valid, chunk,
+            n_split,
             float(hd) ** -0.5, int(verify),
             torch.cuda.current_stream().cuda_stream)
     if err:

@@ -18,11 +18,37 @@ from .. import build
 from .ref import CHUNK_WORDS, TILE, sealed_matmul_ref
 
 
+# The kernel's output tile per block (csrc/sealed_matmul.cu BM, BN) and the
+# cluster extents it runs in, largest first.  M is a multiple of 256, so
+# M/128 is even and a cluster of 1 along M is never needed.
+BLOCK_M, BLOCK_N = 128, 256
+CLUSTER_M, CLUSTER_N = (4, 2), (2, 1)
+# integer operations per Threefry block of four bf16 (common.cuh)
+CTR_OPS_PER_BLOCK = 74
+
+
+def cluster_shape(M: int, N: int) -> tuple[int, int]:
+    """(cm, cn): the largest cluster extents along M and N that divide the
+    kernel's grid of M/128 x N/256 blocks."""
+    cm = next(c for c in CLUSTER_M if (M // BLOCK_M) % c == 0)
+    cn = next(c for c in CLUSTER_N if (N // BLOCK_N) % c == 0)
+    return cm, cn
+
+
+def keystream_ops(M: int, K: int, N: int) -> float:
+    """Integer operations of the keystream the kernel regenerates: every A
+    tile once per cluster column of the grid, every B tile once per cluster
+    row, so 18.5 M K N (1 / (BN cn) + 1 / (BM cm))."""
+    cm, cn = cluster_shape(M, N)
+    return (CTR_OPS_PER_BLOCK / 4 * M * K * N
+            * (1 / (BLOCK_N * cn) + 1 / (BLOCK_M * cm)))
+
+
 def _launcher():
     fn = build.library("sealed_matmul").sealed_matmul_launch
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [i32] * 4 + [vp]
+        fn.argtypes = [vp] * 10 + [i32] * 6 + [vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -83,13 +109,14 @@ def sealed_matmul(a_ct, b_ct, tags_a, tags_b, key_a, key_b, mkeys, *,
     ptrs = [None, None, None]
     if verify:
         ptrs = [tags_a.contiguous(), tags_b.contiguous(), aligned(mkeys)]
+    cm, cn = cluster_shape(M, N)
     with torch.cuda.device(dev):
         err = _launcher()(
             a_ct.data_ptr(), b_ct.data_ptr(),
             *[t.data_ptr() if t is not None else None for t in ptrs[:2]],
             key_a.data_ptr(), key_b.data_ptr(),
             ptrs[2].data_ptr() if verify else None, c.data_ptr(),
-            bad.data_ptr(), counts.data_ptr(), M, K, N, int(verify),
+            bad.data_ptr(), counts.data_ptr(), M, K, N, cm, cn, int(verify),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"sealed_matmul kernel launch failed: "

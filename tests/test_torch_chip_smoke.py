@@ -55,8 +55,9 @@ def test_sealed_matmul_bound_is_set_by_the_tensor_cores(M, K, N, bytes_ms,
     """Granite's MLP products of one 8192-token microbatch: 2MKN FLOP at
     989 TFLOP/s (0.278 ms) bound them, over the bytes of A, B, their tags
     and C and the integer work the inputs need (one Threefry block per
-    four bf16, one MAC word per two); the kernel's 128-tile keystream
-    regeneration is 18.5 MKN (2/128) operations."""
+    four bf16, one MAC word per two); the kernel's keystream regeneration
+    in 128 x 256 tiles shared by clusters of 4 x 2 is 18.5 MKN (2/512)
+    operations."""
     b = chip_smoke.matmul_bound(M, K, N)
     elems = M * K + K * N
     assert b["ops"] == elems // 4 * 74 + elems // 2 * 20
@@ -66,7 +67,53 @@ def test_sealed_matmul_bound_is_set_by_the_tensor_cores(M, K, N, bytes_ms,
     assert 0.277 < b["bound_ms"] < 0.279
     assert b["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3 < bytes_ms
     assert b["ops"] / chip_smoke.INT32_OPS_PER_S * 1e3 < ops_ms
-    assert b["keystream_ops"] == pytest.approx(18.5 * M * K * N * 2 / 128)
+    assert b["keystream_ops"] == pytest.approx(18.5 * M * K * N * 2 / 512)
+
+
+@pytest.mark.parametrize("verify", [False, True])
+def test_bounds_count_alu_pipe_operations(verify):
+    """The bounds count 42 of a Threefry block's 74 operations and 14 of a
+    MAC word's 20 (those that must issue on the ALU pipe); bound_ms_74
+    keeps all of them there."""
+    rows = 2 * 8 * 1024 * 8
+    b = chip_smoke.attention_bound(8, 8, 4, 64, 1024, verify)
+    assert b["alu_ops"] == rows * 16 * 42 + (rows * 32 * 14 if verify else 0)
+    assert b["bound_ms"] == pytest.approx(
+        b["alu_ops"] / chip_smoke.INT32_OPS_PER_S * 1e3)
+    assert b["bound_ms_74"] == pytest.approx(
+        b["ops"] / chip_smoke.INT32_OPS_PER_S * 1e3)
+    m = chip_smoke.matmul_bound(256, 256, 256, verify)
+    elems = 2 * 256 * 256
+    assert m["alu_ops"] == elems // 4 * 42 + (elems // 2 * 14 if verify else 0)
+
+
+def _sass_line(addr, text):
+    return (f"        /*{addr:04x}*/                   {text} ;"
+            f"   /* 0x000fe20000000f00 */\n"
+            "                                  /* 0x000fc80000000f00 */\n")
+
+
+def test_mac_word_alu_ops_reads_the_lanes_four_words():
+    """The ALU-pipe instructions (LOP3, SHF, LEA, IADD3, PRMT; predicated
+    ones too, IMAD and VIADD not) between verify_chunks_kernel's last load
+    and its first shuffle, per word."""
+    body = ["LDG.E.128.CONSTANT R4, desc[UR6][R4.64]", "IMAD.X R9, RZ, RZ, R6",
+            "LDG.E.128.CONSTANT R8, desc[UR6][R8.64]",
+            "LOP3.LUT R17, R6, 0x7fffffff, RZ, 0xc0, !PT",
+            "LEA.HI R14, R6, R17, RZ, 0x1", "VIADD R14, R14, 0x1",
+            "IMAD.WIDE.U32 R4, R19, R10, RZ", "SHF.R.U64 R8, R4, 0x1f, R5",
+            "@P0 IADD3 R10, P2, R4, R9, RZ", "PRMT R1, R2, 0x5410, R3",
+            "LEA.HI.X R17, R17, RZ, RZ, 0x1, P2",
+            "SHFL.DOWN R3, R8, 0x10, 0x1f",
+            "LOP3.LUT R5, R8, 0x7fffffff, RZ, 0xc0, !PT"]
+    text = "\t\tFunction : _Z11ctr_kernelv\n" + _sass_line(0, "LDG.E R1") \
+        + "\t\tFunction : _ZN12_GLOBAL__N_120verify_chunks_kernelEPKt\n" \
+        + "".join(_sass_line(16 * i, t) for i, t in enumerate(body))
+    from repro_torch.kernels import build
+
+    funcs = build.sass_opcodes(text)
+    assert funcs["_Z11ctr_kernelv"] == ["LDG"]
+    assert chip_smoke.mac_word_alu_ops(funcs) == 6 / 4
 
 
 def test_refuses_to_run_without_a_card(monkeypatch, capsys):

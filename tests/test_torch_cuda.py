@@ -116,6 +116,38 @@ def test_sealed_attention_kernel_counts_tamper_only_below_t_valid(
     assert torch.equal(bad, expect)
 
 
+@pytest.mark.parametrize("verify", [False, True])
+@pytest.mark.parametrize("B, T, K, G, hd, tv", [
+    (8, 1024, 8, 4, 64, 9), (8, 1024, 8, 4, 64, 1015),
+    (1, 1024, 1, 4, 128, 129), (2, 1024, 2, 1, 128, 5),
+    (1, 300, 1, 4, 128, 300), (2, 1000, 2, 4, 32, 999),
+    (2, 512, 2, 3, 64, 300)])
+def test_sealed_attention_kernel_at_group_and_split_edges(gen, B, T, K, G, hd,
+                                                          tv, verify):
+    """t_valid one row past a warp's group (8 rows at hd 64, 4 at hd 128)
+    and past a split's end, the fixed phase's t_valid 1015, and grids of
+    fewer blocks than SMs at hd 128; the merge's scratch is left zero."""
+    q, args = sealed_cache(gen, B, T, K, G, hd)
+    out, bad = sa_ops.sealed_decode_attention(q, *args, tv, verify=verify)
+    torch.cuda.synchronize()
+    want, want_bad = sa_ref.sealed_decode_attention_words_ref(
+        q, *args, tv, verify)
+    assert torch.isfinite(out.float()).all()
+    assert sa_ref.out_excess(out, want) <= 0
+    assert torch.equal(bad, want_bad) and int(bad.sum()) == 0
+    assert not sa_ops._sync_buffer(q.device, B * K).any()
+
+
+def test_sealed_attention_kernel_refuses_other_head_dims(gen):
+    """The CUDA kernel takes hd 32, 64 and 128; another head_dim the
+    wrapper otherwise accepts raises before any launch."""
+    q, args = sealed_cache(gen, 1, 16, 1, 4, 16)
+    before = sa_ops.sealed_decode_attention.launches
+    with pytest.raises(ValueError, match="head_dim 16"):
+        sa_ops.sealed_decode_attention(q, *args, 8, verify=False)
+    assert sa_ops.sealed_decode_attention.launches == before
+
+
 def sealed_operands(gen, M, K, N):
     """bf16 A [M, K] and B [K, N] (granite-like scales), sealed for the
     sealed matmul, with the kernel's keys: (atol, [a_ct, b_ct, tags_a,
@@ -137,7 +169,10 @@ def sealed_operands(gen, M, K, N):
 @pytest.mark.parametrize("verify", [False, True])
 @pytest.mark.parametrize("M, K, N", [
     (256, 256, 256), (512, 256, 768), (256, 2048, 512), (2048, 512, 256),
-    (768, 1280, 2048), (2048, 2048, 2048)])
+    (768, 1280, 2048), (2048, 2048, 2048),
+    # grids the full 4 x 2 cluster does not divide (2 and 6 row blocks, 3
+    # column blocks), and K = 256: four k-stages against a ring of three
+    (256, 256, 2048), (768, 512, 768), (768, 256, 1536)])
 def test_sealed_matmul_kernel_matches_plain_version(gen, M, K, N, verify):
     """C within two bf16 ulps (``ref.C_RTOL``) plus ``ref.c_atol``; ``bad``
     exact."""

@@ -99,8 +99,8 @@ def test_sealed_attention_matches_reference(tv):
 @pytest.mark.parametrize("fault", ["unmasked tail", "dropped row"])
 def test_limit_rejects_a_masking_fault(fault):
     """The output limit sees the faults a kernel's masking can make, at the
-    card check's t_valid 700 (inside the kernel's 64-row tile 640-703): the
-    rows past t_valid read up to the tile's end, or the last valid row
+    card check's t_valid 700 (inside the kernel's 8-row group 696-703): the
+    rows past t_valid read up to the group's end, or the last valid row
     left out."""
     B, T, K, G, hd, tv = 2, 1024, 2, 4, 64, 700
     q, _, tc = sealed_pair(B, T, K, G, hd, 5, 6, seed=21)
@@ -167,3 +167,65 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     ct = torch.zeros((1, 4, 1, 16), dtype=torch.int16)
     with pytest.raises(ValueError, match="k_tags"):
         tsa.sealed_decode_attention(q, ct, ct, None, None, key, key, None, 4)
+
+
+@pytest.mark.parametrize("hd, rows", [(32, 16), (64, 8), (128, 4)])
+def test_chunk_rows_is_a_warp_group(hd, rows):
+    """A warp's group: lane l holds Threefry block l % (hd/4) of four rows,
+    so 32 lanes cover 4 * 32 / (hd/4) rows."""
+    assert tsa.chunk_rows(hd) == rows
+    assert tsa.chunk_rows(hd) * (hd // 4) == tsa.ROWS_PER_LANE * 32
+
+
+@pytest.mark.parametrize("B, K, tv, hd, slots", [
+    (8, 8, 1015, 64, 528), (8, 8, 1015, 64, 396), (8, 8, 1, 64, 528),
+    (8, 8, 9, 64, 528), (2, 2, 1000, 128, 528), (2, 2, 5, 128, 528),
+    (2, 2, 0, 64, 528), (64, 8, 4096, 64, 396), (1, 1, 1024, 64, 528)])
+def test_split_plan_covers_t_valid_in_one_wave(B, K, tv, hd, slots):
+    """The split covers rows 0..t_valid-1 with whole groups and no empty
+    block, gives each block's warps a group each where the rows allow, and
+    keeps the grid within one wave of ``slots`` blocks when B K allows."""
+    n_split, chunk = tsa.split_plan(B, K, tv, hd, slots)
+    rows = tsa.chunk_rows(hd)
+    assert n_split >= 1 and chunk % rows == 0
+    assert n_split * chunk >= tv and (n_split - 1) * chunk < max(tv, 1)
+    if B * K <= slots:
+        assert B * K * n_split <= slots
+    if tv >= tsa.WARPS * rows * n_split:
+        assert chunk >= tsa.WARPS * rows
+
+
+def test_split_plan_fills_the_fixed_phase_wave():
+    """Granite's fixed decode phase (B 8, K 8, t_valid 1015, hd 64) on 132
+    SMs of four blocks: 8 splits of 128 rows, 512 blocks of 528 slots."""
+    assert tsa.split_plan(8, 8, 1015, 64, 4 * 132) == (8, 128)
+
+
+def test_sync_buffer_is_reused_grown_and_never_freed(monkeypatch):
+    """One zeroed scratch per device, reused while it is large enough; an
+    outgrown one is kept alive (a CUDA graph may hold it)."""
+    monkeypatch.setattr(tsa, "_sync", {})
+    monkeypatch.setattr(tsa, "_sync_retired", [])
+    dev = torch.device("cpu")
+    small = tsa._sync_buffer(dev, 4)
+    assert small.numel() == 8 and not small.any()
+    assert tsa._sync_buffer(dev, 3) is small
+    big = tsa._sync_buffer(dev, 64)
+    assert big.numel() == 128 and not big.any()
+    assert tsa._sync_retired == [small]
+    assert tsa._sync_buffer(dev, 4) is big
+
+
+def test_sync_buffer_is_not_made_during_a_capture(monkeypatch):
+    """Inside a CUDA-graph capture a new scratch would be zeroed only at
+    replay: the existing one serves, and one that must grow raises."""
+    monkeypatch.setattr(tsa, "_sync", {})
+    monkeypatch.setattr(tsa, "_sync_retired", [])
+    dev = torch.device("cpu")
+    with pytest.raises(RuntimeError, match="before capturing"):
+        tsa._sync_buffer(dev, 4, capturing=True)
+    buf = tsa._sync_buffer(dev, 8)
+    assert tsa._sync_buffer(dev, 8, capturing=True) is buf
+    with pytest.raises(RuntimeError, match="before capturing"):
+        tsa._sync_buffer(dev, 9, capturing=True)
+    assert tsa._sync_buffer(dev, 8) is buf and not tsa._sync_retired
