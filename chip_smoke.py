@@ -48,7 +48,9 @@ From the root of a checkout:  python3 chip_smoke.py
    moments) sealed by ``seal_state``, three steps of two 4096-token
    microbatches through ``make_train_step``, resealed in place; finite
    losses, seal_ok, CTR and MAC launched every step, the peak memory and
-   one profiled step; a flipped bit in a sealed mu leaf poisons the state;
+   two profiled steps, the first with the QK product as it was before it
+   went to the tensor cores (float32 operands); a flipped bit in a sealed
+   mu leaf poisons the state;
    then the smoke config trained for 4 steps through ``Supervisor`` (a
    failure at step 2, checkpoint, restart, lane refreshes) on the card and
    on the CPU: losses within 1e-4 relative, the same events;
@@ -246,7 +248,8 @@ def kernel_checks(sealed, provider_key):
     """Every kernel against its plain version at the main path's shapes.
 
     Returns {kernel: [workload dicts]}, each with mismatches, max_abs_err,
-    ms (kernel), plain_ms, bytes, ops, bound_ms and bound_by.
+    ms (kernel, in a CUDA graph), event_ms (CUDA events around one call,
+    host time included), plain_ms, bytes, ops, bound_ms and bound_by.
     """
     from repro_torch.core import cipher, mac, sealed as sealed_lib
     from repro_torch.kernels.ctr_cipher import ops as ctr_ops, ref as ctr_ref
@@ -275,7 +278,8 @@ def kernel_checks(sealed, provider_key):
         ref = ctr_ref.ctr_xor_ref(x, tkeys, rows)
         mism, err = compare(out, ref)
         del out, ref
-        ms = device_ms(lambda: ctr_ops.ctr_xor(x, tkeys, rows))
+        ms = graph_ms(lambda: ctr_ops.ctr_xor(x, tkeys, rows))
+        event_ms = device_ms(lambda: ctr_ops.ctr_xor(x, tkeys, rows))
         plain_ms = device_ms(lambda: ctr_ref.ctr_xor_ref(x, tkeys, rows), reps=1)
         n, r, e = x.shape
         words = -(-e * x.element_size() // 4)
@@ -284,8 +288,8 @@ def kernel_checks(sealed, provider_key):
         b, by = bound(nbytes, blocks * CTR_ALU_OPS_PER_BLOCK)
         results["ctr_cipher"].append(dict(
             shape=name, dims=list(x.shape), mismatches=mism,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-            ops=blocks * CTR_OPS_PER_BLOCK,
+            max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+            bytes=nbytes, ops=blocks * CTR_OPS_PER_BLOCK,
             alu_ops=blocks * CTR_ALU_OPS_PER_BLOCK, bound_ms=b, bound_by=by,
             per_step=step_share))
         torch.cuda.empty_cache()
@@ -296,7 +300,8 @@ def kernel_checks(sealed, provider_key):
         ref = mac_ref.mac_tags_ref(x, keys, cw)
         mism, err = compare(out, ref)
         del ref
-        ms = device_ms(lambda: mac_ops.mac_tags(x, keys))
+        ms = graph_ms(lambda: mac_ops.mac_tags(x, keys))
+        event_ms = device_ms(lambda: mac_ops.mac_tags(x, keys))
         plain_ms = device_ms(lambda: mac_ref.mac_tags_ref(x, keys, cw), reps=1)
         n, r, e = x.shape
         words = n * r * (-(-e * x.element_size() // 4))
@@ -304,7 +309,8 @@ def kernel_checks(sealed, provider_key):
         b, by = bound(nbytes, words * MAC_ALU_OPS_PER_WORD)
         results["tree_mac"].append(dict(
             shape=name, dims=list(x.shape), cw=cw, mismatches=mism,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+            max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+            bytes=nbytes,
             ops=words * MAC_OPS_PER_WORD,
             alu_ops=words * MAC_ALU_OPS_PER_WORD,
             bound_ms=b, bound_by=by,
@@ -865,9 +871,14 @@ def fixed_phase(cfg, sealed, provider):
     # This late in the run the profiler keeps only part of the launches
     # (kernels_per_call < 1), so the layer's device times are taken from a
     # CUDA graph of the calls; the profiler's are kept beside them.
+    # a launch captured in a graph zeroes counters of its own, which a
+    # launch outside one does not: ms holds that zeroing (counters_ms, in
+    # a graph of 100 to spread the graph's own launch thin)
     layer.update(profiler_ms=layer["ms"], ms=graph_ms(kernel),
                  library_profiler_ms=layer["library_ms"],
-                 library_ms=graph_ms(sdpa))
+                 library_ms=graph_ms(sdpa),
+                 counters_ms=graph_ms(lambda: sa_ops._counters(
+                     q4.device, None, B * K, True), reps=100))
     del kd, vd, cache, rec["cache"]
 
     # a flipped weight bit poisons every lane of the fused engine
@@ -963,8 +974,10 @@ def train_phase(cfg):
     """(e) Sealed training of granite-3-2b at full width and depth: the
     state (params, mu, nu: 26.3 GB of ciphertext) sealed by ``seal_state``,
     three steps of two 4096-token microbatches through ``make_train_step``
-    (resealing in place), one more under the profiler, then one flipped
-    bit in a sealed ``mu`` leaf: seal_ok False and a poisoned state."""
+    (resealing in place), two more under the profiler (the first with the
+    QK product's float32 operands, TF32 off, as before it went to the
+    tensor cores), then one flipped bit in a sealed ``mu`` leaf: seal_ok
+    False and a poisoned state."""
     from repro_torch.core import sealed as sealed_lib
     from repro_torch.core.channel import SecureChannel
     from repro_torch.data import SyntheticLM
@@ -1029,6 +1042,19 @@ def train_phase(cfg):
 
     b = None
     del state
+    # one step with the QK product as it was before it went to the tensor
+    # cores (float32 operands, TF32 off), then one as it is
+    from repro_torch.models import layers
+
+    def f32_qk(q, k):
+        return torch.einsum("bqkgd,btkd->bqkgt", q.float(), k.float())
+
+    qk = layers.qk_logits
+    layers.qk_logits = f32_qk
+    try:
+        profile_f32_qk = profile_step(one_step)
+    finally:
+        layers.qk_logits = qk
     profile = profile_step(one_step)
     # a flipped bit in one sealed mu leaf poisons everything written
     state = held.pop("state")
@@ -1043,7 +1069,8 @@ def train_phase(cfg):
     del state, norm, nu0, b
     torch.cuda.empty_cache()
     return dict(steps=steps, peak_bytes=peak, launches=launches,
-                sealed_bytes=sealed_bytes, profile=profile, reduced=reduced,
+                sealed_bytes=sealed_bytes, profile=profile,
+                profile_f32_qk=profile_f32_qk, reduced=reduced,
                 tokens_per_step=TRAIN_4K.seq_len * TRAIN_ACCUM)
 
 
@@ -1187,7 +1214,7 @@ def main() -> int:
     # the redesigned kernels' registers, shared memory and spills, and the
     # SASS opcode mix of every kernel (IADD3/LOP3/SHF/LEA/PRMT on the ALU
     # pipe, IMAD on the FMA pipe): a Threefry block has 20 rotates (SHF)
-    for name in ("sealed_matmul", "sealed_attention"):
+    for name in ("sealed_matmul", "sealed_attention", "tree_mac"):
         print(f"ptxas {name}: "
               f"{json.dumps(ptxas_report(build.build_log.get(name, '')))}",
               flush=True)
@@ -1228,9 +1255,10 @@ def main() -> int:
     for name, cases in results.items():
         for c in cases:
             print(f"check {name:10s} {c['shape']}: mismatches {c['mismatches']}"
-                  f", kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, "
-                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})",
-                  flush=True)
+                  f", kernel {c['ms']:.4f} ms in a CUDA graph ("
+                  f"{c['event_ms']:.4f} ms events), plain "
+                  f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms "
+                  f"({c['bound_by']})", flush=True)
             check(c["mismatches"] == 0,
                   f"{name} disagrees with its plain version on {c['shape']}")
     torch.cuda.empty_cache()
@@ -1343,7 +1371,8 @@ def main() -> int:
           f"{layer['ms']:.4f} ms device in a CUDA graph (profiler "
           f"{layer['profiler_ms']:.4f} ms with "
           f"{layer['kernels_per_call']:.2f} kernels a call seen; "
-          f"{layer['event_ms']:.4f} ms events),"
+          f"{layer['event_ms']:.4f} ms events; of the graph's time its own "
+          f"zeroing of the counters {layer['counters_ms']:.5f} ms),"
           f" fused with key derivation {layer['fused_event_ms']:.4f} ms "
           f"events, CTR unseal + plain attention {layer['unfused_ms']:.4f} "
           f"ms device (profiler, {layer['unfused_kernels_per_call']:.1f} "
@@ -1389,6 +1418,12 @@ def main() -> int:
           f"{json.dumps(tr['reduced'])}; a flipped mu bit poisoned the "
           f"state", flush=True)
     print(f"profile: one train step {json.dumps(tr['profile'])}", flush=True)
+    for name, p in (("float32 operands (before)", tr["profile_f32_qk"]),
+                    ("bf16 on the tensor cores", tr["profile"])):
+        print(f"train: QK product {name}: step {p['wall_ms']:.1f} ms wall = "
+              f"{tr['tokens_per_step'] / p['wall_ms'] * 1e3:.0f} tok/s, "
+              f"{p['device_busy_ms']:.1f} ms busy, idle "
+              f"{p['device_idle_share']:.3f}", flush=True)
     ref = smoke_train_reference()
     (cpu_l, cpu_ev), (gpu_l, gpu_ev) = ref["cpu"], ref["cuda"]
     rel = max(abs(a - b) / abs(a) for a, b in zip(cpu_l, gpu_l))
@@ -1416,6 +1451,7 @@ def main() -> int:
         step = [c for c in cases
                 if c["shape"].startswith(("weight", "page gather"))]
         ms = sum(c["ms"] * c["per_step"] for c in step)
+        event_ms = sum(c["event_ms"] * c["per_step"] for c in step)
         plain = sum(c["plain_ms"] * c["per_step"] for c in step)
         nbytes = sum(c["bytes"] * c["per_step"] for c in step)
         ops = sum(c["ops"] * c["per_step"] for c in step)
@@ -1427,14 +1463,15 @@ def main() -> int:
             "launches_per_decode_step": per_step.get(name),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "mismatches": sum(c["mismatches"] for c in cases),
-            "ms": ms, "plain_ms": plain, "bound_ms": max(tb, to),
+            "ms": ms, "event_ms": event_ms, "plain_ms": plain,
+            "bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
             "bound_ms_74": max(tb, ops / INT32_OPS_PER_S * 1e3),
             "library_ms": None,
             "workload": "weight tree + k and v page-batch gathers of one "
-                        "decode step",
-            "shapes": [{k: c[k] for k in ("shape", "ms", "plain_ms",
-                                          "bound_ms", "bound_by")}
+                        "decode step; ms in a CUDA graph",
+            "shapes": [{k: c[k] for k in ("shape", "ms", "event_ms",
+                                          "plain_ms", "bound_ms", "bound_by")}
                        for c in cases]})
     # one fused decode step: the kernel once per layer over the fixed
     # phase's cache
@@ -1452,6 +1489,7 @@ def main() -> int:
         "tolerance": {"rtol": sa_ref.OUT_RTOL, "atol": sa_ref.OUT_ATOL},
         "control_max_abs_err": attn_controls,
         "ms": layer["ms"] * n_l, "event_ms": layer["event_ms"] * n_l,
+        "counters_ms": layer["counters_ms"] * n_l,
         "profiler_ms": layer["profiler_ms"] * n_l,
         "profiler_kernels_per_call": layer["kernels_per_call"],
         "plain_ms": layer["plain_ms"] * n_l,

@@ -51,31 +51,26 @@ def split_plan(B: int, K: int, t_valid: int, hd: int, slots: int):
     return max(1, -(-t_valid // chunk)), chunk
 
 
-_sync: dict = {}     # device -> the kernel's scratch (see _sync_buffer)
-_sync_retired: list = []   # outgrown scratch that a CUDA graph may hold
+_sync: dict = {}     # (device, stream) -> counters its launches leave zero
 
 
-def _sync_buffer(device, pairs: int, capturing: bool = False) -> torch.Tensor:
-    """The kernel's int32 scratch of 2 per (b, k) pair (its blocks' ticket
-    and bad count): zero when made, and every launch leaves it zero, so
-    one buffer per device serves every call in turn (no memset per launch).
+def _counters(device, stream: int, pairs: int,
+              capturing: bool) -> torch.Tensor:
+    """The kernel's int32 counters, two per (b, k) pair (its blocks' ticket
+    and bad count), zero at the launch; every launch leaves them zero.
 
-    Launches that share it must not overlap: their tickets would mix, and
-    ``out`` and ``bad`` could be left unwritten.  So the kernel is not safe
-    on two streams of one device at once, nor beside a replay of a CUDA
-    graph that holds it.  An outgrown buffer is kept, never freed, since a
-    graph may still hold it; a buffer cannot be made during a capture
-    (its zeros would be written only at replay), so ``capturing`` raises
-    where one would be."""
-    buf = _sync.get(device)
+    Outside a CUDA-graph capture, the launches on one stream (its
+    ``cuda_stream`` handle) take turns on one buffer, so they need no
+    memset; launches on two streams hold two buffers.  A launch captured
+    into a graph gets counters of its own from the graph's pool, zeroed at
+    every replay, so a replay on any stream never shares counters with a
+    launch outside the graph."""
+    if capturing:
+        return torch.zeros(2 * pairs, dtype=torch.int32, device=device)
+    buf = _sync.get((device, stream))
     if buf is None or buf.numel() < 2 * pairs:
-        if capturing:
-            raise RuntimeError("sealed_decode_attention: call it once at "
-                               "this B * K before capturing a CUDA graph")
-        if buf is not None:
-            _sync_retired.append(buf)
-        buf = _sync[device] = torch.zeros(2 * pairs, dtype=torch.int32,
-                                          device=device)
+        buf = _sync[(device, stream)] = torch.zeros(
+            2 * pairs, dtype=torch.int32, device=device)
     return buf
 
 
@@ -99,9 +94,8 @@ def sealed_decode_attention(q, k_ct, v_ct, k_tags, v_tags, key_k, key_v,
 
     On a CUDA tensor one launch on PyTorch's current stream computes the
     output and ``bad``: the last of its blocks for each (b, k) writes them,
-    counted through a scratch per device that launches share in turn, so
-    calls on one device must not run on two streams at once (see
-    ``_sync_buffer``).
+    counted in counters that no concurrent launch shares (see
+    ``_counters``).
 
     q bf16 [B, K, G, hd]; k_ct/v_ct int16 [B, T, K, hd] (bf16 ciphertext
     bits); k_tags/v_tags int32 [B, T, K, 1] (None when ``verify`` is off);
@@ -155,8 +149,9 @@ def sealed_decode_attention(q, k_ct, v_ct, k_tags, v_tags, key_k, key_v,
     n_split, chunk = split_plan(B, K, t_valid, hd, _slots(q.device, hd, G))
     out = torch.empty((B, K, G, hd), dtype=torch.bfloat16, device=q.device)
     bad = torch.empty((B, K), dtype=torch.int32, device=q.device)
-    sync = _sync_buffer(q.device, B * K,
-                        torch.cuda.is_current_stream_capturing())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sync = _counters(q.device, stream, B * K,
+                     torch.cuda.is_current_stream_capturing())
     part = torch.empty((B * K * n_split * G * (hd + 2),), dtype=torch.float32,
                        device=q.device)
 
@@ -177,9 +172,7 @@ def sealed_decode_attention(q, k_ct, v_ct, k_tags, v_tags, key_k, key_v,
             key_k.data_ptr(), key_v.data_ptr(),
             ptr(mkeys) if verify else None, out.data_ptr(), bad.data_ptr(),
             part.data_ptr(), sync.data_ptr(), B, T, K, G, hd, t_valid, chunk,
-            n_split,
-            float(hd) ** -0.5, int(verify),
-            torch.cuda.current_stream().cuda_stream)
+            n_split, float(hd) ** -0.5, int(verify), stream)
     if err:
         raise RuntimeError(f"sealed_decode_attention kernel launch failed: "
                            f"cudaError {err}")

@@ -12,7 +12,8 @@ import torch
 from .. import build
 from .ref import mac_tags_ref
 
-MAX_ITEMS = 65535   # one item per blockIdx.y
+MAX_ITEMS = 65535   # one item per blockIdx.y or .z
+MAX_ITEM_WORDS = 2**31 - 4   # the kernel's indices within an item are 32-bit
 
 
 def _launcher():
@@ -52,13 +53,20 @@ def mac_tags(x: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mac_tags runs on cpu or cuda, not {x.device}")
     if N > MAX_ITEMS:
         raise ValueError(f"mac_tags takes at most {MAX_ITEMS} items, got {N}")
+    if R * words > MAX_ITEM_WORDS:
+        raise ValueError(f"mac_tags takes at most {MAX_ITEM_WORDS} words an "
+                         f"item, got {R * words}")
     out = torch.empty((N, R, words // cw), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
+    # the kernel reads the flat buffer (rows of any width start anywhere in
+    # it) and the wide path's keys as aligned 16-byte vectors
     x = x.contiguous()
-    if x.data_ptr() % 8:
+    if x.data_ptr() % 16:
         x = x.clone()
     keys = keys.contiguous()
+    if keys.data_ptr() % 16:
+        keys = keys.clone()
     with torch.cuda.device(x.device):
         err = _launcher()(
             x.data_ptr(), keys.data_ptr(), out.data_ptr(), N, R, E,

@@ -9,6 +9,8 @@ initializers take an explicit ``torch.Generator`` and device, and a
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -75,11 +77,34 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 _NEG_INF = -1e30
 
 
+@contextlib.contextmanager
+def _tf32_matmuls():
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = before
+
+
+def qk_logits(q, k):
+    """q: [B,qb,K,G,hd]; k: [B,T,K,hd] -> float32 [B,qb,K,G,T], the
+    reference's bf16 x bf16 product with a float32 result.  On the card
+    bf16 operands run on the tensor cores in TF32, which holds every bf16
+    value exactly (8 significand bits of its 11), so the products are exact
+    and only the order of the float32 sum differs; float32 operands (the
+    parity configs) stay full float32."""
+    exact_in_tf32 = q.is_cuda and q.dtype == k.dtype == torch.bfloat16
+    with _tf32_matmuls() if exact_in_tf32 else contextlib.nullcontext():
+        return torch.einsum("bqkgd,btkd->bqkgt", q.float(), k.float())
+
+
 def _attend_block(q, k, v, qpos, tpos, causal: bool, t_valid=None):
     """q: [B,qb,K,G,hd]; k,v: [B,T,K,hd]; qpos [qb] or [B,qb]; tpos [T]
     -> [B,qb,K,G,hd].  t_valid: None, an int, or a [B] tensor."""
     scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqkgd,btkd->bqkgt", q.float(), k.float()) * scale
+    logits = qk_logits(q, k) * scale
     if causal:
         mask = tpos[None, :] <= qpos[..., :, None]          # [qb,T] | [B,qb,T]
     else:

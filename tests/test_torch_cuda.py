@@ -19,6 +19,7 @@ from repro_torch.kernels.sealed_matmul import ops as smm_ops  # noqa: E402
 from repro_torch.kernels.sealed_matmul import ref as smm_ref  # noqa: E402
 from repro_torch.kernels.tree_mac import ops as mac_ops  # noqa: E402
 from repro_torch.kernels.tree_mac import ref as mac_ref  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -53,7 +54,21 @@ def test_ctr_kernel_matches_plain_version(gen, n, r, e, dtype, rows):
 
 @pytest.mark.parametrize("n, r, e, dtype, cw", [
     (1, 256, 512, torch.int32, 128), (1, 4, 49155, torch.int16, 2),
-    (8, 1, 163840, torch.int16, 128), (3, 5, 24, torch.int32, 3)])
+    (8, 1, 163840, torch.int16, 128), (3, 5, 24, torch.int32, 3),
+    # odd 16-bit widths: odd and even row counts, cw 2 and a prime word
+    # count in chunks of 1 (and of 13 on the general path)
+    (1, 5, 49155, torch.int16, 2), (2, 3, 49155, torch.int16, 2),
+    (3, 7, 25, torch.int16, 1), (3, 7, 25, torch.int16, 13),
+    (2, 9, 1535, torch.int16, 3), (2, 7, 79, torch.int16, 8),
+    (1, 3, 69, torch.int16, 5), (1, 3, 69, torch.int16, 7),
+    # wide chunks, and cw 256 on an odd width (general path)
+    (1, 64, 8192, torch.int16, 512), (2, 6, 512, torch.int16, 256),
+    (1, 5, 1023, torch.int16, 256), (3, 5, 128, torch.int32, 32),
+    (2, 3, 256, torch.int16, 64), (2, 3, 200, torch.int32, 100),
+    (2, 4, 47, torch.int16, 12), (1, 3, 120, torch.int32, 24),
+    # several items whose rows leave a block, a warp or a group part-filled
+    (5, 37, 66, torch.int16, 3), (3, 7, 96, torch.int32, 32),
+    (4, 300, 4099, torch.int16, 2), (7, 3, 300, torch.int16, 50)])
 def test_tree_mac_kernel_matches_plain_version(gen, n, r, e, dtype, cw):
     x = bits(gen, (n, r, e), dtype)
     keys = (bits(gen, (n, cw), torch.int64) & 0x7FFFFFFE).to(torch.int32)
@@ -63,6 +78,49 @@ def test_tree_mac_kernel_matches_plain_version(gen, n, r, e, dtype, cw):
     assert mac_ops.mac_tags.launches == before + 1
     assert torch.equal(out, mac_ref.mac_tags_ref(x, keys, cw))
     assert np.all(out.cpu().numpy() >= 0)
+
+
+@pytest.mark.parametrize("e, cw", [(49155, 2), (1023, 256), (512, 256)])
+def test_tree_mac_kernel_reads_a_view_at_a_two_byte_offset(gen, e, cw):
+    """A view that starts one 16-bit element into its storage: the wrapper
+    realigns it to the kernel's 16-byte vectors."""
+    flat = bits(gen, (3 * 5 * e + 1,), torch.int16)
+    x = flat[1:].view(3, 5, e)
+    assert x.data_ptr() % 16 == 2
+    keys = (bits(gen, (3, cw), torch.int64) & 0x7FFFFFFE).to(torch.int32)
+    assert torch.equal(mac_ops.mac_tags(x, keys),
+                       mac_ref.mac_tags_ref(x, keys, cw))
+
+
+@pytest.mark.parametrize("e, cw, row, col", [
+    (49155, 2, 3, 49154), (49155, 2, 2, 0), (8192, 512, 5, 4000),
+    (1023, 256, 1, 777), (25, 1, 6, 24), (79, 8, 4, 17)])
+def test_tree_mac_kernel_flags_exactly_the_flipped_chunk(gen, e, cw, row,
+                                                         col):
+    """One flipped ciphertext bit changes the one tag of its chunk, also in
+    the half-used last word of an odd-width row and in a row's first word."""
+    x = bits(gen, (2, 7, e), torch.int16)
+    keys = (bits(gen, (2, cw), torch.int64) & 0x7FFFFFFE).to(torch.int32)
+    tags = mac_ops.mac_tags(x, keys)
+    x[1, row, col] ^= 1 << 5
+    moved = mac_ops.mac_tags(x, keys) != tags
+    assert int(moved.sum()) == 1
+    assert bool(moved[1, row, col // 2 // cw])
+
+
+@pytest.mark.parametrize("n, r, e, dtype, cw", [
+    (2, 3, 64, torch.int32, 8), (2, 3, 79, torch.int16, 8),
+    (1, 4, 512, torch.int32, 512), (1, 4, 8192, torch.int16, 512),
+    (2, 5, 49155, torch.int16, 2), (2, 3, 25, torch.int16, 1),
+    (2, 3, 69, torch.int16, 7), (1, 3, 1023, torch.int16, 256),
+    (2, 4, 47, torch.int16, 12)])
+def test_tree_mac_kernel_at_extreme_words_and_keys(gen, n, r, e, dtype, cw):
+    """Every word 0xFFFFFFFF (a half-used last word 0xFFFF) and every key
+    p - 1: the largest products the lazy sums take, on every path."""
+    x = torch.full((n, r, e), -1, dtype=dtype, device="cuda")
+    keys = torch.full((n, cw), 2**31 - 2, dtype=torch.int32, device="cuda")
+    assert torch.equal(mac_ops.mac_tags(x, keys),
+                       mac_ref.mac_tags_ref(x, keys, cw))
 
 
 def sealed_cache(gen, B, T, K, G, hd):
@@ -126,7 +184,7 @@ def test_sealed_attention_kernel_at_group_and_split_edges(gen, B, T, K, G, hd,
                                                           tv, verify):
     """t_valid one row past a warp's group (8 rows at hd 64, 4 at hd 128)
     and past a split's end, the fixed phase's t_valid 1015, and grids of
-    fewer blocks than SMs at hd 128; the merge's scratch is left zero."""
+    fewer blocks than SMs at hd 128; the stream's counters are left zero."""
     q, args = sealed_cache(gen, B, T, K, G, hd)
     out, bad = sa_ops.sealed_decode_attention(q, *args, tv, verify=verify)
     torch.cuda.synchronize()
@@ -135,7 +193,86 @@ def test_sealed_attention_kernel_at_group_and_split_edges(gen, B, T, K, G, hd,
     assert torch.isfinite(out.float()).all()
     assert sa_ref.out_excess(out, want) <= 0
     assert torch.equal(bad, want_bad) and int(bad.sum()) == 0
-    assert not sa_ops._sync_buffer(q.device, B * K).any()
+    assert not sa_ops._counters(
+        q.device, torch.cuda.current_stream().cuda_stream, B * K, False).any()
+
+
+def two_sealed_caches(gen):
+    """Two fixed-phase caches with different inputs, the second with one
+    flipped K bit inside t_valid 1015: [(q, args), (q, args)]."""
+    runs = []
+    for tamper in (False, True):
+        q, args = sealed_cache(gen, 8, 1024, 8, 4, 64)
+        if tamper:
+            args[0][3, 500, 5, 9] ^= 1 << 6
+        runs.append((q, args))
+    return runs
+
+
+def check_outputs(run, outs, n_bad):
+    """Every (out, bad) of outs, launched over run, equals the plain
+    version, with n_bad bad rows."""
+    q, args = run
+    want, want_bad = sa_ref.sealed_decode_attention_words_ref(
+        q, *args, 1015, True)
+    assert int(want_bad.sum()) == n_bad
+    for out, bad in outs:
+        assert sa_ref.out_excess(out, want) <= 0
+        assert torch.equal(bad, want_bad)
+
+
+def test_sealed_attention_kernel_on_two_streams_at_once(gen):
+    """Two launches with different inputs, one with a tampered row, run on
+    two streams at once: each writes its own ``out`` and ``bad`` (each
+    stream has its own counters), equal to the plain version."""
+    torch.cuda.synchronize()
+    runs = two_sealed_caches(gen)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(3):
+        for s, (q, args) in zip(streams, runs):
+            with torch.cuda.stream(s):
+                outs.append(sa_ops.sealed_decode_attention(
+                    q, *args, 1015, verify=True))
+    torch.cuda.synchronize()
+    check_outputs(runs[0], outs[0::2], 0)
+    check_outputs(runs[1], outs[1::2], 1)
+    for s in streams:
+        assert not sa_ops._counters(runs[0][0].device, s.cuda_stream, 64,
+                                    False).any()
+
+
+def test_sealed_attention_graph_replay_beside_a_launch(gen):
+    """A CUDA graph of launches over the tampered cache, captured on one
+    stream and replayed on another, runs at once with launches over the
+    clean cache on the capture stream: the graph's launches count in
+    counters of their own, so no launch takes another's tickets."""
+    runs = two_sealed_caches(gen)
+    (q0, a0), (q1, a1) = runs
+    capture, other = torch.cuda.Stream(), torch.cuda.Stream()
+    capture.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(capture):
+        sa_ops.sealed_decode_attention(q1, *a1, 1015, verify=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=capture):
+        held = [sa_ops.sealed_decode_attention(q1, *a1, 1015, verify=True)
+                for _ in range(3)]
+    torch.cuda.synchronize()
+    other.wait_stream(torch.cuda.current_stream())
+    clean, replayed = [], []
+    for _ in range(3):
+        with torch.cuda.stream(other):
+            graph.replay()
+        with torch.cuda.stream(capture):
+            for _ in range(3):
+                clean.append(sa_ops.sealed_decode_attention(
+                    q0, *a0, 1015, verify=True))
+        torch.cuda.synchronize()
+        replayed += [(out.clone(), bad.clone()) for out, bad in held]
+    check_outputs(runs[0], clean, 0)
+    check_outputs(runs[1], replayed, 1)
 
 
 def test_sealed_attention_kernel_refuses_other_head_dims(gen):
@@ -202,3 +339,29 @@ def test_sealed_matmul_kernel_counts_tamper_per_tile(gen, which, row, col):
     else:
         expect[:, col // 256] = 1
     assert torch.equal(bad, want_bad) and torch.equal(bad, expect)
+
+
+@pytest.mark.parametrize("T", [300, 4096])
+def test_qk_logits_of_bf16_operands_match_the_exact_product(gen, T):
+    """bf16 q and k on the tensor cores (TF32 holds bf16 exactly) against
+    the exact products summed in float64: within the float32 sum's
+    order, hd additions at 2^-22 of sum |q| |k| (f32's 2^-23 doubled for
+    the tensor cores' accumulation); the f32-operand product with TF32 off
+    lies within the same limit.  TF32 is left as it was."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    q = torch.randn((1, 64, 8, 4, 64), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((1, T, 8, 64), generator=gen, device="cuda").bfloat16()
+    got = layers.qk_logits(q, k)
+    assert got.dtype == torch.float32
+    assert torch.backends.cuda.matmul.allow_tf32 == before
+    spec = "bqkgd,btkd->bqkgt"
+    exact = torch.einsum(spec, q.double(), k.double())
+    limit = 64 * 2.0**-22 * torch.einsum(spec, q.double().abs(),
+                                         k.double().abs())
+    assert ((got.double() - exact).abs() <= limit).all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        full = torch.einsum(spec, q.float(), k.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert ((full.double() - exact).abs() <= limit).all()

@@ -156,3 +156,25 @@ def test_mac_wrapper_checks_its_operands():
         tmac.mac_tags(x, torch.zeros((1, 3), dtype=torch.int32))
     with pytest.raises(ValueError):
         tmac.mac_tags(x, torch.zeros((2, 5), dtype=torch.int32))
+
+
+
+# all-ones words and keys p - 1: the largest products the lazy sums of
+# csrc/tree_mac.cu take (odd 16-bit widths end in a half-used word)
+EXTREMES = [((3, 64), np.uint32, 8), ((3, 79), np.uint16, 8),
+            ((4, 512), np.uint32, 512), ((2, 8192), np.uint16, 512),
+            ((2, 49155), np.uint16, 2), ((3, 25), np.uint16, 1),
+            ((3, 69), np.uint16, 7), ((3, 1023), np.uint16, 256)]
+
+
+@pytest.mark.parametrize("shape, dtype, cw", EXTREMES)
+def test_plain_tags_of_extreme_words_and_keys_match_reference(shape, dtype,
+                                                              cw):
+    ct = np.full(shape, np.iinfo(dtype).max, dtype)
+    keys = np.full((cw,), 2**31 - 2, np.uint32)
+    w = to_np(to_t(ct)) if dtype == np.uint32 else np.asarray(
+        tref.words_view(to_t(ct)), np.uint32)
+    want = np.asarray(jm.chunk_tags(jnp.asarray(w.reshape(-1, cw)),
+                                    jnp.asarray(keys)))
+    got = tmac.mac_tags(to_t(ct)[None], to_t(keys)[None])[0]
+    np.testing.assert_array_equal(want, to_np(got).reshape(-1))

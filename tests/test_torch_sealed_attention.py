@@ -201,31 +201,32 @@ def test_split_plan_fills_the_fixed_phase_wave():
     assert tsa.split_plan(8, 8, 1015, 64, 4 * 132) == (8, 128)
 
 
-def test_sync_buffer_is_reused_grown_and_never_freed(monkeypatch):
-    """One zeroed scratch per device, reused while it is large enough; an
-    outgrown one is kept alive (a CUDA graph may hold it)."""
+def test_counters_are_kept_per_stream_and_grown(monkeypatch):
+    """Launches on one stream take turns on one zeroed buffer, which grows
+    with B * K; launches on another stream hold another."""
     monkeypatch.setattr(tsa, "_sync", {})
-    monkeypatch.setattr(tsa, "_sync_retired", [])
     dev = torch.device("cpu")
-    small = tsa._sync_buffer(dev, 4)
+    small = tsa._counters(dev, 11, 4, False)
     assert small.numel() == 8 and not small.any()
-    assert tsa._sync_buffer(dev, 3) is small
-    big = tsa._sync_buffer(dev, 64)
+    assert tsa._counters(dev, 11, 3, False) is small
+    other = tsa._counters(dev, 22, 4, False)
+    assert other.data_ptr() != small.data_ptr()
+    big = tsa._counters(dev, 11, 64, False)
     assert big.numel() == 128 and not big.any()
-    assert tsa._sync_retired == [small]
-    assert tsa._sync_buffer(dev, 4) is big
+    assert tsa._counters(dev, 11, 4, False) is big
+    assert tsa._counters(dev, 22, 4, False) is other
 
 
-def test_sync_buffer_is_not_made_during_a_capture(monkeypatch):
-    """Inside a CUDA-graph capture a new scratch would be zeroed only at
-    replay: the existing one serves, and one that must grow raises."""
+@pytest.mark.parametrize("pairs", [1, 64])
+def test_sync_buffer_is_not_made_during_a_capture(monkeypatch, pairs):
+    """A launch captured into a CUDA graph zeroes counters of its own (the
+    graph replays the zeroing), never a stream's buffer, and makes none."""
     monkeypatch.setattr(tsa, "_sync", {})
-    monkeypatch.setattr(tsa, "_sync_retired", [])
     dev = torch.device("cpu")
-    with pytest.raises(RuntimeError, match="before capturing"):
-        tsa._sync_buffer(dev, 4, capturing=True)
-    buf = tsa._sync_buffer(dev, 8)
-    assert tsa._sync_buffer(dev, 8, capturing=True) is buf
-    with pytest.raises(RuntimeError, match="before capturing"):
-        tsa._sync_buffer(dev, 9, capturing=True)
-    assert tsa._sync_buffer(dev, 8) is buf and not tsa._sync_retired
+    held = tsa._counters(dev, 11, pairs, False)
+    one = tsa._counters(dev, 11, pairs, True)
+    two = tsa._counters(dev, 11, pairs, True)
+    assert one.numel() == two.numel() == 2 * pairs
+    assert not one.any() and not two.any()
+    assert len({held.data_ptr(), one.data_ptr(), two.data_ptr()}) == 3
+    assert list(tsa._sync) == [(dev, 11)]
