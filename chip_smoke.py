@@ -54,7 +54,22 @@ From the root of a checkout:  python3 chip_smoke.py
    then the smoke config trained for 4 steps through ``Supervisor`` (a
    failure at step 2, checkpoint, restart, lane refreshes) on the card and
    on the CPU: losses within 1e-4 relative, the same events;
-9. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+9. serves qwen3-4b, minitron-8b, internvl2-2b (VLM), rwkv6-3b (RWKV-6)
+   and zamba2-1.2b (Mamba-2 hybrid) in turn at their full published width
+   and depth through the fixed-slot ``ServeEngine`` (the families phase):
+   random weights from a seeded torch.Generator, 4 lanes of 128-token
+   prompts (internvl2-2b: 256 patch embeddings before them), 8 new tokens,
+   first with security off, then sealed by the provider: every distinct
+   (leaf shape, dtype, chunk width) of the sealed tree through the CTR and
+   MAC kernels against their plain versions bit for bit, with its MAC path
+   (small, wide or general), ``graph_ms`` and bound, summed over one
+   decode step's unseal; the sealed tokens equal the insecure ones, every
+   sealed decode step launches both kernels, a flipped word of a sealed
+   weight leaf poisons every lane in one decode; for qwen3-4b the fused
+   decode too, and the sealed-attention kernel at B 4, K 8, G 4, hd 128,
+   T = max_len within two bf16 ulps; tok/s, prefill and decode ms, launches
+   a step and peak memory beside the card's name and power limit;
+10. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Each path's kernel launch counts are zeroed just before it runs and read
@@ -64,6 +79,7 @@ printing a result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -118,6 +134,13 @@ LOGIT_TOL = 0.2     # fused vs plain decode logits (the reference's own)
 # the train phase: train_4k's sequence, cut from 16 sequences per
 # microbatch and 256 a step to one and two (8192 tokens), three steps
 TRAIN_ACCUM, TRAIN_STEPS = 2, 3
+# the families phase: each configuration at full published size through
+# the fixed-slot engine, 4 lanes of 128-token prompts (internvl2-2b: 256
+# patch embeddings before them), 8 new tokens
+FAMILY_ARCHS = ("qwen3-4b", "minitron-8b", "internvl2-2b", "rwkv6-3b",
+                "zamba2-1.2b")
+FAMILY_B, FAMILY_PROMPT, FAMILY_NEW = 4, 128, 8
+SLAB_BYTES = 1 << 28   # rows of a leaf each plain-version call takes
 # granite's MLP products for one such microbatch: (name, M, K, N)
 MLP_PRODUCTS = (("w_gate", 8192, 2048, 8192), ("w_down", 8192, 8192, 2048))
 
@@ -244,6 +267,13 @@ def graph_ms(fn, reps: int = 20) -> float:
     return e0.elapsed_time(e1) / (5 * reps)
 
 
+def bound_of(nbytes, ops):
+    """(ms, what bounds it): bytes at the HBM rate or integer operations at
+    the INT32 rate, whichever is slower."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def kernel_checks(sealed, provider_key):
     """Every kernel against its plain version at the main path's shapes.
 
@@ -267,10 +297,6 @@ def kernel_checks(sealed, provider_key):
         diff = (out.to(torch.int64) - ref.to(torch.int64)).abs()
         return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
     results = {"ctr_cipher": [], "tree_mac": []}
 
     def ctr_case(name, x, tkeys, rows=None, step_share=1):
@@ -285,7 +311,7 @@ def kernel_checks(sealed, provider_key):
         words = -(-e * x.element_size() // 4)
         blocks = n * r * ((words + 1) // 2)
         nbytes = 2 * x.numel() * x.element_size()
-        b, by = bound(nbytes, blocks * CTR_ALU_OPS_PER_BLOCK)
+        b, by = bound_of(nbytes, blocks * CTR_ALU_OPS_PER_BLOCK)
         results["ctr_cipher"].append(dict(
             shape=name, dims=list(x.shape), mismatches=mism,
             max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
@@ -306,7 +332,7 @@ def kernel_checks(sealed, provider_key):
         n, r, e = x.shape
         words = n * r * (-(-e * x.element_size() // 4))
         nbytes = x.numel() * x.element_size() + out.numel() * 4
-        b, by = bound(nbytes, words * MAC_ALU_OPS_PER_WORD)
+        b, by = bound_of(nbytes, words * MAC_ALU_OPS_PER_WORD)
         results["tree_mac"].append(dict(
             shape=name, dims=list(x.shape), cw=cw, mismatches=mism,
             max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
@@ -1123,6 +1149,366 @@ def smoke_train_reference():
     return out
 
 
+def mac_path(row_bytes: int, cw: int) -> str:
+    """The MAC kernel's path for rows of ``row_bytes`` at chunk width
+    ``cw``, as ``mac_tags_launch`` in tree_mac.cu picks it."""
+    if cw <= 8:
+        return "small"
+    if row_bytes % 4 == 0 and 32 <= cw <= 512 and not cw & (cw - 1):
+        return "wide"
+    return "general"
+
+
+def leaf_cases(sealed, key):
+    """(f) Every distinct (leaf shape, dtype, cw) of a sealed weight tree:
+    the CTR and MAC kernels over the whole leaf against their plain
+    versions bit for bit (the plain versions a slab of rows at a time,
+    with the slab's counter rows and tag positions), each kernel's
+    ``graph_ms`` and its bound.  ``count``: the leaves of the tree that
+    share the case (a decode step unseals each once)."""
+    from repro_torch.core import cipher, mac, sealed as sealed_lib
+    from repro_torch.kernels.ctr_cipher import ops as ctr_ops, ref as ctr_ref
+    from repro_torch.kernels.tree_mac import ops as mac_ops, ref as mac_ref
+
+    cases = {}
+    for path, leaf in zip(_leaf_paths(sealed), sealed_lib.tree_leaves(sealed)):
+        e, isz = leaf.ct.shape[-1], leaf.ct.element_size()
+        row_w = -(-e * isz // 4)
+        cw = row_w // mac.chunk_count(row_w, leaf.spec.chunk_words)
+        case_key = (tuple(leaf.ct.shape), leaf.ct.dtype, cw)
+        if case_key in cases:
+            cases[case_key]["count"] += 1
+            continue
+        x = leaf.ct.reshape(1, -1, e)
+        R = x.shape[1]
+        tkey = cipher.derive_tensor_key(key, leaf.nonce)[None].contiguous()
+        mkeys = mac.mac_keys(mac.nonce_mac_key(key, leaf.nonce,
+                                               leaf.spec.mac_domain), cw,
+                             leaf.spec.mac_domain)[None]
+        out = ctr_ops.ctr_xor(x, tkey)
+        tags = mac_ops.mac_tags(x, mkeys)
+        check(torch.equal(tags.reshape(leaf.tags.shape), leaf.tags),
+              f"{path}: the MAC kernel's tags differ from the seal's")
+        slab = max(1, SLAB_BYTES // (e * isz))
+        ctr_bad = mac_bad = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r0 in range(0, R, slab):
+            r1 = min(R, r0 + slab)
+            rows = torch.arange(r0, r1, dtype=torch.int32,
+                                device="cuda")[None]
+            ctr_bad += int((out[:, r0:r1] != ctr_ref.ctr_xor_ref(
+                x[:, r0:r1], tkey, rows)).sum())
+            mac_bad += int((tags[:, r0:r1] != mac_ref.mac_tags_ref(
+                x[:, r0:r1], mkeys, cw, row0=r0)).sum())
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        del out, tags
+        nbytes = x.numel() * isz
+        ctr_b = bound_of(2 * nbytes,
+                         R * ((row_w + 1) // 2) * CTR_ALU_OPS_PER_BLOCK)
+        mac_b = bound_of(nbytes + R * (row_w // cw) * 4,
+                         R * row_w * MAC_ALU_OPS_PER_WORD)
+        cases[case_key] = dict(
+            leaf=path, shape=list(leaf.ct.shape), dtype=str(leaf.ct.dtype),
+            cw=cw, path=mac_path(e * isz, cw), count=1, bytes=nbytes,
+            ctr_mismatches=ctr_bad, mac_mismatches=mac_bad,
+            ctr_ms=graph_ms(lambda: ctr_ops.ctr_xor(x, tkey)),
+            mac_ms=graph_ms(lambda: mac_ops.mac_tags(x, mkeys)),
+            plain_ms=plain_ms, ctr_bound_ms=ctr_b[0], ctr_bound_by=ctr_b[1],
+            mac_bound_ms=mac_b[0], mac_bound_by=mac_b[1])
+        check(ctr_bad == 0 and mac_bad == 0,
+              f"{path}: {ctr_bad} CTR and {mac_bad} MAC mismatches against "
+              "the plain versions")
+        torch.cuda.empty_cache()
+    return list(cases.values())
+
+
+def watch(eng):
+    """Wrap a ServeEngine's prefill and decode: each call synchronized and
+    timed, its logits (float32) and the kernel launches of each decode step
+    recorded, the last state and token kept.  Returns the record."""
+    rec = {}
+    prefill, decode = eng._prefill, eng._decode
+
+    def watched_prefill(params, batch, nonce):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = prefill(params, batch, nonce)
+        torch.cuda.synchronize()
+        rec.update(prefill_ms=(time.perf_counter() - t0) * 1e3, state=state,
+                   logits=[logits.float()], decode_ms=[], steps=[])
+        return logits, state
+
+    def watched_decode(params, state, tokens):
+        torch.cuda.synchronize()
+        before = read_launches()
+        t0 = time.perf_counter()
+        logits, state = decode(params, state, tokens)
+        torch.cuda.synchronize()
+        rec["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        after = read_launches()
+        rec["steps"].append({k: after[k] - before[k] for k in after})
+        rec["logits"].append(logits.float())
+        rec.update(state=state, tokens_in=tokens)
+        return logits, state
+
+    eng._prefill, eng._decode = watched_prefill, watched_decode
+    rec["decode"] = decode
+    return rec
+
+
+def generate(eng, rec, batch) -> dict:
+    """One greedy generation with the launch counts zeroed just before it:
+    tokens, wall time, launches, and the record's per-call data."""
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    tokens = eng.generate(batch, FAMILY_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = tokens.size
+    return dict(tokens=tokens, wall=wall, tok_per_s=n_tok / wall,
+                launches=read_launches(), prefill_ms=rec["prefill_ms"],
+                decode_ms=statistics.median(rec["decode_ms"]),
+                steps=list(rec["steps"]), logits=list(rec["logits"]))
+
+
+def fused_attention_check(cfg, cache, kv_key, n_tokens):
+    """qwen3-4b's fused decode: the sealed-attention kernel against its
+    plain version at B 4, K 8, G 4, hd 128, T = max_len (random q, K and
+    V sealed by ``ops.seal_cache``, t_valid the served length and T; verify
+    off and on; then layer 0 of the fused run's own cache), within two
+    bf16 ulps; graph_ms and the bound of one layer's call."""
+    from repro_torch.core import cipher, mac
+    from repro_torch.kernels.sealed_attention import ops as sa_ops
+    from repro_torch.kernels.sealed_attention import ref as sa_ref
+    from repro_torch.models import transformer
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    B, T, K, hd = cache["k_ct"].shape[1:]
+    G = cfg.n_heads // K
+    q = torch.randn((B, K, G, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, T, K, hd), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, T, K, hd), generator=g, device="cuda").bfloat16()
+    master = torch.randint(-2**31, 2**31 - 1, (2,), generator=g,
+                           device="cuda", dtype=torch.int64).to(torch.int32)
+    k_ct, v_ct, k_tags, v_tags = sa_ops.seal_cache(k, v, master, 31, 32)
+    keys = (cipher.derive_tensor_key(master, 31),
+            cipher.derive_tensor_key(master, 32),
+            mac.mac_keys(mac.nonce_mac_key(master, 31), hd // 2))
+    cases = []
+    for tv in (n_tokens, T):
+        for verify in (False, True):
+            args = (q, k_ct, v_ct, k_tags, v_tags, *keys, tv)
+            out, bad = sa_ops.sealed_decode_attention(*args, verify=verify)
+            want, want_bad = sa_ref.sealed_decode_attention_words_ref(
+                *args, verify)
+            excess = sa_ref.out_excess(out, want)
+            err = (out.float() - want.float()).abs().max().item()
+            name = f"B {B}, T {T}, K {K}, G {G}, hd {hd}, t_valid {tv}, " \
+                   f"verify {verify}"
+            check(excess <= 0 and torch.equal(bad, want_bad)
+                  and not bad.any(), f"sealed_attention off by {err} at {name}")
+            cases.append(dict(shape=name, max_abs_err=err, excess=excess))
+    # layer 0 of the fused run's cache, as the fused decode reads it
+    nk, nv = transformer._kv_nonces(cache["nonce"], 0)
+    tval = int(cache["pos"])
+    args = (q, cache["k_ct"][0], cache["v_ct"][0], None, None,
+            cipher.derive_tensor_key(kv_key, nk),
+            cipher.derive_tensor_key(kv_key, nv), None, tval)
+    out, _ = sa_ops.sealed_decode_attention(*args, verify=False)
+    want, _ = sa_ref.sealed_decode_attention_words_ref(*args, False)
+    err = (out.float() - want.float()).abs().max().item()
+    check(sa_ref.out_excess(out, want) <= 0,
+          f"sealed_attention off by {err} on the fused run's cache")
+    cases.append(dict(shape=f"layer 0 of the fused run, t_valid {tval}",
+                      max_abs_err=err,
+                      excess=sa_ref.out_excess(out, want)))
+    layer = dict(t_valid=tval,
+                 ms=graph_ms(lambda: sa_ops.sealed_decode_attention(
+                     *args, verify=False)),
+                 plain_ms=device_ms(
+                     lambda: sa_ref.sealed_decode_attention_words_ref(
+                         *args, False), reps=3),
+                 **attention_bound(B, K, G, hd, tval, False))
+    return cases, layer
+
+
+def family_phase(arch: str, card: str) -> dict:
+    """(f) One more configuration at its full published width and depth
+    through the fixed-slot ServeEngine: random weights from a seeded
+    torch.Generator on the card, served with security off; then the same
+    weights sealed by the provider (plaintext freed), every distinct leaf
+    case of the CTR and MAC kernels held against the plain versions, the
+    sealed run (launch counts zeroed just before it), its tokens against
+    the insecure run's, a flipped word of a sealed weight leaf poisoning
+    every lane in one decode, and for qwen3-4b the fused decode."""
+    from repro_torch import configs
+    from repro_torch.core import sealed as sealed_lib
+    from repro_torch.core.channel import SecureChannel
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = configs.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    n_params = sum(x.numel() for x in _leaves(params))
+    rng = np.random.RandomState(SEED + 11)
+    batch = {"tokens": rng.randint(0, cfg.vocab, (FAMILY_B, FAMILY_PROMPT))
+             .astype(np.int32)}
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "patch" else 0
+    if n_front:
+        batch["patch_embeds"] = rng.standard_normal(
+            (FAMILY_B, n_front, cfg.d_model)).astype(np.float32)
+    max_len = n_front + FAMILY_PROMPT + FAMILY_NEW + 4
+
+    eng = ServeEngine(cfg=cfg, params=params,
+                      channel=SecureChannel.insecure(device="cuda"),
+                      max_len=max_len)
+    plain = generate(eng, watch(eng), batch)
+    # the watched methods close over the engine's own bound methods, a
+    # reference cycle: collect it, or its plaintext weights outlive it
+    del eng
+    gc.collect()
+    provider = SecureChannel.establish(device="cuda")
+    sealed = provider.upload_tree(params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ct_bytes = sum(leaf.nbytes_ct for leaf in _leaves(sealed))
+    tag_bytes = sum(leaf.nbytes_meta for leaf in _leaves(sealed))
+    setup_s = time.perf_counter() - t0
+    cases = leaf_cases(sealed, provider.jkey)
+
+    eng = ServeEngine(cfg=cfg, params=sealed, channel=provider,
+                      max_len=max_len)
+    rec = watch(eng)
+    torch.cuda.reset_peak_memory_stats()
+    run = generate(eng, rec, batch)
+    run["peak_bytes"] = torch.cuda.max_memory_allocated()
+    check(np.array_equal(run["tokens"], plain["tokens"]),
+          f"{arch}: sealed tokens {run['tokens'].tolist()} differ from the "
+          f"insecure run's {plain['tokens'].tolist()}")
+    check(all(bool(torch.isfinite(x).all()) for x in run["logits"]),
+          f"{arch}: the sealed run has non-finite logits")
+    logit_diff = max((a - b).abs().max().item()
+                     for a, b in zip(run["logits"], plain["logits"]))
+    for s in run["steps"]:
+        check(s["ctr_cipher"] > 0 and s["tree_mac"] > 0,
+              f"{arch}: a sealed decode step launched {s}")
+    # a flipped word of a sealed weight leaf: one decode poisons every lane
+    word = sealed_lib.tree_leaves(sealed)[0].ct.view(-1)
+    word[word.numel() // 2] ^= 1 << 3
+    bad, _ = rec["decode"](sealed, rec["state"], rec["tokens_in"])
+    word[word.numel() // 2] ^= 1 << 3
+    poisoned = bool(torch.isnan(bad).all())
+    check(poisoned, f"{arch}: a flipped weight word left lanes unpoisoned")
+    del bad, rec["state"]
+    out = dict(arch=arch, card=card, params=n_params, ct_bytes=ct_bytes,
+               tag_bytes=tag_bytes, setup_s=setup_s, max_len=max_len,
+               n_front=n_front, plain=plain, sealed=run,
+               logit_diff=logit_diff, cases=cases, poisoned=poisoned)
+    if arch == "qwen3-4b":
+        eng.cfg = cfg.with_(fused_sealed_attention=True)
+        fused = generate(eng, rec, batch)
+        check(np.array_equal(fused["tokens"][:, 0], plain["tokens"][:, 0]),
+              "qwen3-4b: fused first tokens differ")
+        check(all(s["sealed_attention"] == cfg.n_layers
+                  for s in fused["steps"]),
+              f"qwen3-4b: fused steps launched {fused['steps']}")
+        fused["agreement"] = float((fused["tokens"] == plain["tokens"]).mean())
+        fused["checks"], fused["layer"] = fused_attention_check(
+            cfg, rec["state"], eng._kv_key, n_front + FAMILY_PROMPT)
+        out["fused"] = fused
+    for r in (out["plain"], out["sealed"], out.get("fused", {})):
+        r.pop("logits", None)          # device tensors: free them here
+    del eng, rec, sealed
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_sums(cases) -> dict:
+    """One sealed decode step's unseal of the weight tree (every leaf once):
+    CTR and MAC ms against their bounds, and the MAC general path's."""
+    def total(key, sel=lambda c: True):
+        return sum(c[key] * c["count"] for c in cases if sel(c))
+
+    general = lambda c: c["path"] == "general"  # noqa: E731
+    return dict(
+        ctr_ms=total("ctr_ms"), ctr_bound_ms=total("ctr_bound_ms"),
+        mac_ms=total("mac_ms"), mac_bound_ms=total("mac_bound_ms"),
+        general_ms=total("mac_ms", general),
+        general_bound_ms=total("mac_bound_ms", general),
+        general_bytes=total("bytes", general), bytes=total("bytes"),
+        plain_ms=total("plain_ms"))
+
+
+def print_family(f: dict, card: str) -> None:
+    """The families phase's lines for one configuration; adds its
+    ``step`` sums to ``f``."""
+    arch = f["arch"]
+    for c in f["cases"]:
+        print(f"family {arch} leaf {c['leaf']} {c['shape']} {c['dtype']}"
+              f" (x{c['count']}): cw {c['cw']}, {c['path']} MAC path; "
+              f"mismatches ctr {c['ctr_mismatches']} mac "
+              f"{c['mac_mismatches']}; in a CUDA graph ctr "
+              f"{c['ctr_ms']:.4f} ms (bound {c['ctr_bound_ms']:.4f}, "
+              f"{c['ctr_bound_by']}), mac {c['mac_ms']:.4f} ms (bound "
+              f"{c['mac_bound_ms']:.4f}, {c['mac_bound_by']}); plain "
+              f"versions {c['plain_ms']:.1f} ms", flush=True)
+    st = f["step"] = step_sums(f["cases"])
+    general = (f"{st['general_ms']:.4f} ms against "
+               f"{st['general_bound_ms']:.4f} over {st['general_bytes']} "
+               f"bytes ({st['general_bound_ms'] / st['general_ms']:.1%} "
+               "of its bound)" if st["general_ms"] else "no leaf")
+    print(f"family {arch}: one decode step's weight unseal "
+          f"({st['bytes']} ciphertext bytes): CTR {st['ctr_ms']:.4f} ms "
+          f"against {st['ctr_bound_ms']:.4f} "
+          f"({st['ctr_bound_ms'] / st['ctr_ms']:.1%}), MAC "
+          f"{st['mac_ms']:.4f} ms against {st['mac_bound_ms']:.4f} "
+          f"({st['mac_bound_ms'] / st['mac_ms']:.1%}); MAC general "
+          f"path {general}; {card}", flush=True)
+    for name in ("plain", "sealed", "fused"):
+        r = f.get(name)
+        if r is None:
+            continue
+        label = {"plain": "insecure", "sealed": "sealed",
+                 "fused": "sealed fused"}[name]
+        print(f"family {arch} {label}: {FAMILY_B} lanes x {FAMILY_NEW} "
+              f"tokens ({f['n_front']} patch + {FAMILY_PROMPT} prompt "
+              f"positions, max_len {f['max_len']}) in {r['wall']:.3f} s "
+              f"= {r['tok_per_s']:.2f} tok/s; prefill "
+              f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms']:.1f} ms "
+              f"(median); launches a decode step "
+              f"{json.dumps(r['steps'][0])}; run launches "
+              f"{json.dumps(r['launches'])}"
+              + (f"; peak memory {r['peak_bytes'] / 2**30:.2f} GiB"
+                 if "peak_bytes" in r else "") + f"; {card}", flush=True)
+    print(f"family {arch}: {f['params']} params, {f['ct_bytes']} "
+          f"ciphertext + {f['tag_bytes']} tag bytes, set up in "
+          f"{f['setup_s']:.1f} s; sealed tokens == insecure tokens, "
+          f"largest logit difference {f['logit_diff']:.3g}; a flipped "
+          f"weight word poisoned every lane; first tokens "
+          f"{f['sealed']['tokens'][:, 0].tolist()}", flush=True)
+    if "fused" in f:
+        fu = f["fused"]
+        for c in fu["checks"]:
+            print(f"family {arch} check sealed_attention {c['shape']}: "
+                  f"max abs err {c['max_abs_err']:.3g} (excess over two "
+                  f"bf16 ulps {c['excess']:.3g})", flush=True)
+        ly = fu["layer"]
+        print(f"family {arch} fused: token agreement with the insecure "
+              f"run {fu['agreement']:.4f} (first tokens equal); one "
+              f"layer at t_valid {ly['t_valid']}: kernel "
+              f"{ly['ms']:.4f} ms in a CUDA graph, plain "
+              f"{ly['plain_ms']:.3f} ms, bound {ly['bound_ms']:.4f} ms "
+              f"({ly['bound_by']}); {card}", flush=True)
+
+
 def _counted():
     from repro_torch.kernels.ctr_cipher import ops as ctr_ops
     from repro_torch.kernels.sealed_attention import ops as sa_ops
@@ -1435,7 +1821,18 @@ def main() -> int:
           f"{rel:.2g} relative over {len(gpu_l)} steps, events "
           f"{json.dumps(gpu_ev)}", flush=True)
 
-    # 10. report ----------------------------------------------------------
+    # 10. the other families at full size through the fixed-slot engine --
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_fam = time.perf_counter()
+    fams = {}
+    for arch in FAMILY_ARCHS:
+        fams[arch] = family_phase(arch, card)
+        print_family(fams[arch], card)
+    print(f"families: {len(fams)} configurations in "
+          f"{time.perf_counter() - t_fam:.1f} s", flush=True)
+
+    # 11. report ----------------------------------------------------------
     sources = {"ctr_cipher": ("src/repro_torch/csrc/ctr_cipher.cu",
                               "src/repro/kernels/ctr_cipher/kernel.py:43"),
                "tree_mac": ("src/repro_torch/csrc/tree_mac.cu",
@@ -1538,9 +1935,30 @@ def main() -> int:
                "sealed_matmul": {**{k: 0 for k in launches},
                                  "sealed_matmul": mm["launches"]},
                "train": tr["launches"]}
+    for arch, f in fams.items():
+        by_path[f"{arch} sealed"] = f["sealed"]["launches"]
+        if "fused" in f:
+            by_path[f"{arch} fused"] = f["fused"]["launches"]
     for k in kernels:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in by_path.items()}
+    # per configuration of the families phase: one sealed decode step's
+    # weight unseal (CUDA graphs, every leaf once) and its launches
+    for k in kernels[:2]:
+        pre = "ctr" if k["name"] == "ctr_cipher" else "mac"
+        k["families"] = {arch: {
+            "step_ms": f["step"][f"{pre}_ms"],
+            "bound_ms": f["step"][f"{pre}_bound_ms"],
+            "launches_per_decode_step": f["sealed"]["steps"][0][k["name"]],
+            **({"general_path_ms": f["step"]["general_ms"],
+                "general_path_bound_ms": f["step"]["general_bound_ms"]}
+               if pre == "mac" else {})} for arch, f in fams.items()}
+    lay = fams["qwen3-4b"]["fused"]["layer"]
+    kernels[2]["families"] = {"qwen3-4b fused": {
+        "layer_ms": lay["ms"], "bound_ms": lay["bound_ms"],
+        "plain_ms": lay["plain_ms"], "t_valid": lay["t_valid"],
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in fams["qwen3-4b"]["fused"]["checks"])}}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,22 @@
-"""Architecture registry of the port (the dense configs it serves and
-trains)."""
+"""Architecture registry of the port: the configs it serves (every ported
+family) and trains (the dense ones)."""
 from __future__ import annotations
 
 import importlib
 
 from ..models.config import ModelConfig
 
-ARCH_IDS = ("granite-3-2b",)
+ARCH_IDS = ("rwkv6-3b", "qwen3-4b", "minitron-8b", "granite-3-2b",
+            "internvl2-2b", "zamba2-1.2b")
 
-_MODULES = {"granite-3-2b": "granite_3_2b"}
+_MODULES = {
+    "rwkv6-3b": "rwkv6_3b",
+    "qwen3-4b": "qwen3_4b",
+    "minitron-8b": "minitron_8b",
+    "granite-3-2b": "granite_3_2b",
+    "internvl2-2b": "internvl2_2b",
+    "zamba2-1.2b": "zamba2_1_2b",
+}
 
 
 def arch_module(arch_id: str):
@@ -18,4 +26,3 @@ def arch_module(arch_id: str):
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     m = arch_module(arch_id)
     return m.SMOKE if smoke else m.CONFIG
-

@@ -23,9 +23,12 @@ def words_view(x: torch.Tensor) -> torch.Tensor:
     return h[..., 0] | (h[..., 1] << 16)
 
 
-def mac_tags_ref(x: torch.Tensor, keys: torch.Tensor, cw: int) -> torch.Tensor:
+def mac_tags_ref(x: torch.Tensor, keys: torch.Tensor, cw: int,
+                 row0: int = 0) -> torch.Tensor:
     """x int16/int32 [N, R, E]; keys int32 [N, cw] canonical.  Returns the
-    int32 tags [N, R, W / cw] (W = words per row)."""
+    int32 tags [N, R, W / cw] (W = words per row).  ``row0``: x holds rows
+    row0 ... row0 + R - 1 of its items (their tags' positions), so a large
+    item can be checked a slab of rows at a time."""
     N, R, _ = x.shape
     w = words_view(x)
     nc = w.shape[-1] // cw
@@ -33,7 +36,7 @@ def mac_tags_ref(x: torch.Tensor, keys: torch.Tensor, cw: int) -> torch.Tensor:
     v = common.fold32(common.fold32(w) + 1)
     prod = (v.reshape(N, R, nc, cw) * k[:, None, None, :]) % common.P31
     s = prod.sum(dim=-1) % common.P31
-    idx = torch.arange(R * nc, dtype=torch.int64,
+    idx = torch.arange(row0 * nc, (row0 + R) * nc, dtype=torch.int64,
                        device=x.device).reshape(R, nc)
     pos = common.canon(common.mul_u32(idx, common.POS_MIX))
     tag = (s + ((pos + 1) * k[:, 0, None, None]) % common.P31) % common.P31

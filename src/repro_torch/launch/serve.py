@@ -10,10 +10,11 @@ requests have mixed prompt lengths and share one sealed paged KV pool.
 slots or pages run out it preempts running low-priority requests, whose
 sealed KV swaps verbatim into the SealedStore host tier and back.
 ``--engine fixed`` runs the fixed-slot ``ServeEngine`` over equal-length
-prompts instead.  ``--watch N`` prints the posture dashboard to stderr every
-N steps; ``--slo name=value`` tunes the streaming monitor's thresholds.
-Dense family only (the other families are not ported yet).  Weights are
-random, from a seeded ``torch.Generator``.
+prompts instead; the VLM, RWKV and hybrid families have no paged path and
+always take it (with a message under ``--engine gateway``).  ``--watch N``
+prints the posture dashboard to stderr every N steps; ``--slo name=value``
+tunes the streaming monitor's thresholds.  Weights and the VLM's patch
+embeddings are random, from a seeded ``torch.Generator`` and numpy.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 
 from .. import configs
 from ..core.channel import SecureChannel, resolve_device
-from ..models import transformer
+from ..models import registry
 from ..obs import MonitorConfig, parse_slo_overrides, render_gateway
 from ..serve import SecureGateway, ServeEngine
 
@@ -105,11 +106,17 @@ def _run_fixed(cfg, params, args, device) -> None:
                else SecureChannel.insecure(device=device))
     if args.security == "trusted":
         params = channel.upload_tree(params)
-    max_len = args.max_prompt + args.max_new + 4
+    # the patch embeddings take the cache's first slots (the reference
+    # leaves them out of max_len)
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "patch" else 0
+    max_len = n_front + args.max_prompt + args.max_new + 4
     engine = ServeEngine(cfg=cfg, params=params, channel=channel,
                          max_len=max_len)
     batch = {"tokens": np.random.RandomState(1).randint(
         0, cfg.vocab, (args.slots, args.max_prompt)).astype(np.int32)}
+    if n_front:
+        batch["patch_embeds"] = np.random.RandomState(2).standard_normal(
+            (args.slots, n_front, cfg.d_model)).astype(np.float32)
     t0 = time.perf_counter()
     out = engine.generate(batch, n_new=args.max_new)
     dt = time.perf_counter() - t0
@@ -165,13 +172,14 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = configs.get_config(args.arch, smoke=args.smoke)
-    if cfg.family != "dense":
-        raise SystemExit(f"{cfg.family} family is not ported yet")
-    params = transformer.init(torch.Generator(device=device).manual_seed(0),
-                              cfg, device)
-    if args.engine == "gateway":
+    params = registry.get_model(cfg).init(
+        torch.Generator(device=device).manual_seed(0), cfg, device)
+    if args.engine == "gateway" and cfg.family == "dense":
         _run_gateway(cfg, params, args, device)
     else:
+        if args.engine == "gateway":
+            print(f"{cfg.family} family has no paged path yet; "
+                  "falling back to the fixed-slot engine")
         _run_fixed(cfg, params, args, device)
 
 

@@ -37,7 +37,9 @@ from ..train.fault import FailureInjector, StragglerPolicy, Supervisor
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
+    ap.add_argument("--arch", required=True,
+                    choices=[a for a in configs.ARCH_IDS
+                             if configs.get_config(a).family == "dense"])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--security", default="trusted",
                     choices=("trusted", "ctr", "off"))

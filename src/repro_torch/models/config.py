@@ -1,5 +1,5 @@
-"""ModelConfig — the dense-transformer fields that serving and training
-read, and the training shape cell.
+"""ModelConfig — the fields of the ported families (dense, vlm, rwkv,
+hybrid) that serving and training read, and the training shape cell.
 
 A subset of ``repro.models.config`` with the same field names and
 defaults; dtypes are names mapped to torch dtypes.
@@ -15,9 +15,30 @@ DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64
+    n_heads: int = 0              # SSD heads (0 => d_model // head_dim)
+    head_dim: int = 64
+    conv_width: int = 4
+    expand: int = 2               # inner dim = expand * d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    attn_every: int = 6           # shared attention block period (zamba2)
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64          # LoRA rank for data-dependent decay (Finch)
+    gate_lora: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense (the only family ported so far)
+    family: str                   # dense | vlm | rwkv | hybrid (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,12 +50,23 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    # family sub-configs
+    ssm: SSMConfig = SSMConfig()
+    hybrid: HybridConfig = HybridConfig()
+    rwkv: RWKVConfig = RWKVConfig()
+    # modality frontend: 'none' | 'patch' (vlm); the caller passes the
+    # precomputed patch embeddings
+    frontend: str = "none"
+    n_frontend_tokens: int = 256  # patches per image
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     q_block: int = 512            # blocked-attention query block
+    scan_layers: bool = True      # the reference's layer scan (a Python
+                                  # loop here either way)
     fused_sealed_attention: bool = False  # fixed-slot decode: the sealed
                                   # flash-decode kernel reads the sealed
                                   # cache directly (bf16 activations only)
+    sub_quadratic: bool = False   # True for rwkv / pure-ssm paths
 
     @property
     def hd(self) -> int:

@@ -1,4 +1,7 @@
-"""Dense GQA transformer LM (torch port of ``repro.models.transformer``).
+"""Dense GQA transformer LM (torch port of ``repro.models.transformer``),
+also the backbone of the VLM family (a ``patch_proj`` of precomputed patch
+embeddings placed before the tokens) and the source of the attention and
+logits the recurrent families reuse.
 
 Parameters are nested dicts with the reference's keys; layer leaves are
 stacked [n_layers, ...].  ``init`` makes full-width random weights straight
@@ -51,6 +54,9 @@ def init(generator: torch.Generator, cfg, device="cuda"):
     if not cfg.tie_embeddings:
         params["unembed"] = L.dense_init(generator, cfg.d_model, cfg.vocab,
                                          dt, device)
+    if cfg.frontend == "patch":
+        params["patch_proj"] = L.dense_init(generator, cfg.d_model,
+                                            cfg.d_model, dt, device)
     return params
 
 
@@ -135,17 +141,24 @@ def backbone(params, cfg, x, positions, remat: bool = False):
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params, cfg, batch):
-    """Token embeddings (the port's dense family has no frontend)."""
-    return params["embed"][batch["tokens"]].to(cfg.act_dtype)
+    """(x [B, n_front + S, D], n_front): the token embeddings, after the
+    projected patch embeddings [B, n_front, D] when the config has the
+    patch frontend and the batch carries ``patch_embeds``."""
+    x = params["embed"][batch["tokens"]].to(cfg.act_dtype)
+    if cfg.frontend == "patch" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(cfg.act_dtype) @ params["patch_proj"]
+        return torch.cat([pe, x], dim=1), pe.shape[1]
+    return x, 0
 
 
 def loss(params, cfg, batch):
-    """Next-token CE. batch: tokens [B,S], labels [B,S] (-1 = masked)."""
-    x = _embed_inputs(params, cfg, batch)
+    """Next-token CE. batch: tokens [B,S], labels [B,S] (-1 = masked),
+    and ``patch_embeds`` [B, n_front, D] for the VLM."""
+    x, n_front = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = backbone(params, cfg, x, positions,
                     remat=torch.is_grad_enabled())
-    logits = logits_of(params, cfg, x)
+    logits = logits_of(params, cfg, x[:, n_front:])
     labels = batch["labels"]
     return L.softmax_xent(logits, torch.clamp(labels, min=0),
                           mask=labels >= 0)
@@ -204,13 +217,17 @@ def seal_layers(ks: torch.Tensor, vs: torch.Tensor, key: torch.Tensor,
 def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
     """Run the full prompt; return (last-token logits, cache at ``max_len``).
 
-    batch: {"tokens": int [B, S]}.  seal_ctx: (key int32 [2], nonce int)
+    batch: {"tokens": int [B, S]} (and ``patch_embeds`` for the VLM, which
+    take the cache's first slots).  seal_ctx: (key int32 [2], nonce int)
     seals the cache — the padding rows too, as the reference does."""
-    x = _embed_inputs(params, cfg, batch)
+    x, _ = _embed_inputs(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    x, (ks, vs) = backbone(params, cfg, x, positions)
     pad = max_len - S
+    if pad < 0:
+        raise ValueError(f"a prompt of {S} positions exceeds the "
+                         f"{max_len}-slot cache")
+    x, (ks, vs) = backbone(params, cfg, x, positions)
     ks = F.pad(ks, (0, 0, 0, 0, 0, pad))
     vs = F.pad(vs, (0, 0, 0, 0, 0, pad))
     cache = {"pos": S}
@@ -230,6 +247,9 @@ def decode_step(params, cfg, cache, tokens, seal_ctx=None):
     the new slot is written into the cache's tensors in place."""
     B = tokens.shape[0]
     pos = int(cache["pos"])
+    T = (cache["k_ct"] if seal_ctx is not None else cache["k"]).shape[2]
+    if pos >= T:
+        raise ValueError(f"decode position {pos} is past the {T}-slot cache")
     dev = tokens.device
     x = params["embed"][tokens[:, None]].to(cfg.act_dtype)
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)

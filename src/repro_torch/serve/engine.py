@@ -1,10 +1,12 @@
 """Serving engines with sealed KV caches (torch port of ``repro.serve.engine``).
 
-``ServeEngine`` — the fixed-slot engine: one sealed [L, B, max_len] cache
-per batch, equal-length prompts, whole-batch nonce epochs, over
-``transformer.prefill`` / ``decode_step``.  With
-``cfg.fused_sealed_attention`` its decode reads the sealed cache through
-the sealed flash-decode kernel.
+``ServeEngine`` — the fixed-slot engine: one sealed decode state per batch
+(the [L, B, max_len] KV cache of the dense and VLM families, the recurrent
+state of RWKV, the SSM states and shared-attention KV of the hybrid),
+equal-length prompts, whole-batch nonce epochs, over the family's
+``prefill`` / ``decode_step`` from ``models.registry``.  With
+``cfg.fused_sealed_attention`` the dense decode reads the sealed cache
+through the sealed flash-decode kernel.
 
 ``PagedEngine`` — the multi-tenant engine behind the gateway: decodes at
 variable occupancy over a shared paged KV pool: each active lane carries
@@ -34,7 +36,7 @@ from ..core import sealed as sealed_lib
 from ..core.channel import SecureChannel
 from ..kernels import common
 from ..models import layers as L
-from ..models import transformer
+from ..models import registry, transformer
 from ..obs import Profiler, Tracer
 from . import kv_pager
 
@@ -59,17 +61,16 @@ def unseal_params(params, key: torch.Tensor, sealed: bool):
 @dataclasses.dataclass
 class ServeEngine:
     """Greedy generation for a batch of equal-length prompts over one
-    fixed-slot cache, sealed under the channel's KV subkey when the
-    channel's security is on.  Dense transformers only."""
+    fixed-slot decode state, sealed under the channel's KV subkey when the
+    channel's security is on.  The dense transformer updates its cache in
+    place; the recurrent families return new state dicts."""
     cfg: object
     params: object                  # sealed tree if channel.config.enabled
     channel: SecureChannel
     max_len: int
 
     def __post_init__(self):
-        if self.cfg.family != "dense":
-            raise ValueError(f"ServeEngine of the port serves dense "
-                             f"transformers, got {self.cfg.family!r}")
+        self.model = registry.get_model(self.cfg)
         self._sealed = self.channel.config.enabled
         self._kv_key = self.channel.subkey(KV_CACHE_DOMAIN)
         self._nonce_epoch = 1
@@ -86,19 +87,20 @@ class ServeEngine:
     def _prefill(self, params_in, batch, nonce: int):
         params, ok = unseal_params(params_in, self.channel.jkey, self._sealed)
         seal_ctx = (self._kv_key, nonce) if self._sealed else None
-        logits, cache = transformer.prefill(params, self.cfg, batch,
-                                            self.max_len, seal_ctx=seal_ctx)
+        logits, cache = self.model.prefill(params, self.cfg, batch,
+                                           self.max_len, seal_ctx=seal_ctx)
         return self._gate(logits, ok), cache
 
     def _decode(self, params_in, cache, tokens):
         params, ok = unseal_params(params_in, self.channel.jkey, self._sealed)
         seal_ctx = ((self._kv_key, cache["nonce"]) if self._sealed else None)
-        logits, cache = transformer.decode_step(params, self.cfg, cache,
-                                                tokens, seal_ctx=seal_ctx)
+        logits, cache = self.model.decode_step(params, self.cfg, cache,
+                                               tokens, seal_ctx=seal_ctx)
         return self._gate(logits, ok), cache
 
     def generate(self, batch: dict, n_new: int):
-        """batch: {'tokens': int [B, S]}.  Greedy decode -> numpy [B, n_new]."""
+        """batch: {'tokens': int [B, S]} (and ``patch_embeds`` [B, n, D]
+        for the VLM).  Greedy decode -> numpy [B, n_new]."""
         batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
                  for k, v in batch.items()}
         nonce = self._nonce_epoch & common.M32

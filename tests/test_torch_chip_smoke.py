@@ -120,3 +120,33 @@ def test_refuses_to_run_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("row_bytes, cw, path", [
+    (98310, 2, "small"), (16, 4, "small"), (8192 * 2, 512, "wide"),
+    (1024 * 2, 256, "wide"), (2560 * 2, 320, "general"),
+    (92553 * 2, 77, "general"), (9728 * 2, 304, "general"),
+    (1023 * 2, 256, "general"), (64 * 4, 64, "wide"), (24 * 4, 12, "general")])
+def test_mac_path_follows_the_kernels_dispatch(row_bytes, cw, path):
+    """cw <= 8 small; a power of two from 32 to 512 on rows of whole words
+    wide; anything else (the families' cw 77-500, an odd-width row) the
+    general path, as mac_tags_launch picks them."""
+    assert chip_smoke.mac_path(row_bytes, cw) == path
+
+
+def test_step_sums_count_each_leaf_of_a_case():
+    """A decode step unseals every leaf once: a case shared by n leaves
+    counts n times, and the general path's sums take only its cases."""
+    cases = [dict(path="general", count=2, bytes=10, ctr_ms=1.0,
+                  ctr_bound_ms=0.5, mac_ms=0.4, mac_bound_ms=0.2,
+                  plain_ms=3.0),
+             dict(path="wide", count=1, bytes=7, ctr_ms=2.0,
+                  ctr_bound_ms=1.5, mac_ms=1.0, mac_bound_ms=0.9,
+                  plain_ms=4.0)]
+    s = chip_smoke.step_sums(cases)
+    assert s["ctr_ms"] == 4.0 and s["ctr_bound_ms"] == 2.5
+    assert s["mac_ms"] == pytest.approx(1.8)
+    assert s["general_ms"] == pytest.approx(0.8)
+    assert s["general_bound_ms"] == pytest.approx(0.4)
+    assert s["general_bytes"] == 20 and s["bytes"] == 27
+    assert s["plain_ms"] == 10.0

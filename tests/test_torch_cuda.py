@@ -123,6 +123,37 @@ def test_tree_mac_kernel_at_extreme_words_and_keys(gen, n, r, e, dtype, cw):
                        mac_ref.mac_tags_ref(x, keys, cw))
 
 
+# row widths and chunk widths of the weight leaves of qwen3-4b (2560, 9728),
+# rwkv6-3b (8960, 160), internvl2-2b's odd-width unembed (92553) and
+# zamba2-1.2b (in_proj 8384, conv 4224, unembed 32000): none of the chunk
+# widths is a power of two, so all take the general path
+FAMILY_WIDTHS = [(92553, 77), (8384, 262), (9728, 304), (2560, 320),
+                 (4224, 352), (8960, 448), (32000, 500), (160, 80)]
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
+@pytest.mark.parametrize("e, cw", FAMILY_WIDTHS)
+def test_tree_mac_kernel_at_the_families_widths(gen, e, cw, extreme):
+    """bf16 rows of the new families' widths, at the chunk width the
+    divisor-aligned rule gives at 512 words: random bits and keys, and
+    all-ones words with keys p - 1."""
+    words = -(-e // 2)
+    assert words // mac.chunk_count(words, 512) == cw
+    shape = (2, 5, e)
+    if extreme:
+        x = torch.full(shape, -1, dtype=torch.int16, device="cuda")
+        keys = torch.full((2, cw), 2**31 - 2, dtype=torch.int32,
+                          device="cuda")
+    else:
+        x = bits(gen, shape, torch.int16)
+        keys = (bits(gen, (2, cw), torch.int64) & 0x7FFFFFFE).to(torch.int32)
+    out = mac_ops.mac_tags(x, keys)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mac_ref.mac_tags_ref(x, keys, cw))
+    assert torch.equal(out[:, 2:], mac_ref.mac_tags_ref(x[:, 2:], keys, cw,
+                                                        row0=2))
+
+
 def sealed_cache(gen, B, T, K, G, hd):
     """A bf16 query and a sealed bf16 KV cache, with the kernel's keys."""
     q = torch.randn((B, K, G, hd), generator=gen, device="cuda").bfloat16()

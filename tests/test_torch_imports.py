@@ -17,7 +17,11 @@ SLICE_MODULES = (
     "repro_torch.kernels.sealed_matmul.ref", "repro_torch.optim.adamw",
     "repro_torch.optim.schedule", "repro_torch.data.pipeline",
     "repro_torch.train.trainer", "repro_torch.train.checkpoint",
-    "repro_torch.train.fault", "repro_torch.launch.train")
+    "repro_torch.train.fault", "repro_torch.launch.train",
+    "repro_torch.models.registry", "repro_torch.models.rwkv",
+    "repro_torch.models.ssm", "repro_torch.configs.qwen3_4b",
+    "repro_torch.configs.minitron_8b", "repro_torch.configs.internvl2_2b",
+    "repro_torch.configs.rwkv6_3b", "repro_torch.configs.zamba2_1_2b")
 
 PROBE = """
 import pkgutil, sys

@@ -1,5 +1,6 @@
 """``python -m repro_torch.launch.serve`` on the CPU (``--device cpu``), the
-smoke config, both engines; without ``--device`` it asks for the card."""
+smoke configs, both engines and every ported family; without ``--device``
+it asks for the card."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,6 +22,16 @@ def test_serve_main_on_cpu(capsys, extra, want):
     assert want in out
     if "fixed" not in extra:
         assert out.count("(done") == 3
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "internvl2-2b"])
+def test_serve_main_other_families_on_cpu(capsys, arch):
+    """No paged path: the gateway engine says so and serves through the
+    fixed-slot engine (the VLM's 8 patch tokens counted in its cache)."""
+    serve.main(["--arch", arch, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "no paged path yet; falling back to the fixed-slot engine" in out
+    assert "4 x 12 tokens in" in out and "launches verified: 12" in out
 
 
 def test_serve_main_audit_chain(capsys, tmp_path):
