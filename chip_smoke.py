@@ -54,11 +54,15 @@ From the root of a checkout:  python3 chip_smoke.py
    then the smoke config trained for 4 steps through ``Supervisor`` (a
    failure at step 2, checkpoint, restart, lane refreshes) on the card and
    on the CPU: losses within 1e-4 relative, the same events;
-9. serves qwen3-4b, minitron-8b, internvl2-2b (VLM), rwkv6-3b (RWKV-6)
-   and zamba2-1.2b (Mamba-2 hybrid) in turn at their full published width
-   and depth through the fixed-slot ``ServeEngine`` (the families phase):
-   random weights from a seeded torch.Generator, 4 lanes of 128-token
-   prompts (internvl2-2b: 256 patch embeddings before them), 8 new tokens,
+9. serves qwen3-4b, minitron-8b, internvl2-2b (VLM), rwkv6-3b (RWKV-6),
+   zamba2-1.2b (Mamba-2 hybrid), moonshot-v1-16b-a3b (MoE, 64 experts
+   top-6) and seamless-m4t-large-v2 (encoder-decoder) in turn at their full
+   published width through the fixed-slot ``ServeEngine`` (the families
+   phase), at full depth but moonshot's (24 of 48 layers: its whole-tree
+   unseal holds ciphertext and plaintext at once), random weights from a
+   seeded torch.Generator, 4 lanes of 128-token prompts (internvl2-2b: 256
+   patch embeddings before them; seamless: 128 frame embeddings), 8 new
+   tokens,
    first with security off, then sealed by the provider: every distinct
    (leaf shape, dtype, chunk width) of the sealed tree through the CTR and
    MAC kernels against their plain versions bit for bit, with its MAC path
@@ -69,6 +73,10 @@ From the root of a checkout:  python3 chip_smoke.py
    decode too, and the sealed-attention kernel at B 4, K 8, G 4, hd 128,
    T = max_len within two bf16 ulps; tok/s, prefill and decode ms, launches
    a step and peak memory beside the card's name and power limit;
+   moonshot's stacked expert leaves (2.21 G words each) take the MAC
+   kernel's row slabs and the CTR kernel past 2^31 words; then
+   llama4-maverick-400b-a17b's SMOKE config (dense and MoE layers in
+   pairs) served sealed on the card and on the CPU: the same tokens;
 10. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -134,11 +142,16 @@ LOGIT_TOL = 0.2     # fused vs plain decode logits (the reference's own)
 # the train phase: train_4k's sequence, cut from 16 sequences per
 # microbatch and 256 a step to one and two (8192 tokens), three steps
 TRAIN_ACCUM, TRAIN_STEPS = 2, 3
-# the families phase: each configuration at full published size through
+# the families phase: each configuration at full published width through
 # the fixed-slot engine, 4 lanes of 128-token prompts (internvl2-2b: 256
-# patch embeddings before them), 8 new tokens
+# patch embeddings before them; seamless-m4t-large-v2: 128 frame
+# embeddings for its encoder), 8 new tokens
 FAMILY_ARCHS = ("qwen3-4b", "minitron-8b", "internvl2-2b", "rwkv6-3b",
-                "zamba2-1.2b")
+                "zamba2-1.2b", "seamless-m4t-large-v2", "moonshot-v1-16b-a3b")
+# depth cuts: a sealed decode step unseals the whole weight tree, so
+# ciphertext and plaintext are held at once: moonshot at 24 layers is
+# 2 x 29.6 GB, at its 48 it would be 2 x 58 GB, more than the 80 GB card
+FAMILY_CUTS = {"moonshot-v1-16b-a3b": {"n_layers": 24}}
 FAMILY_B, FAMILY_PROMPT, FAMILY_NEW = 4, 128, 8
 SLAB_BYTES = 1 << 28   # rows of a leaf each plain-version call takes
 # granite's MLP products for one such microbatch: (name, M, K, N)
@@ -1349,7 +1362,11 @@ def family_phase(arch: str, card: str) -> dict:
     from repro_torch.models import registry
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = configs.get_config(arch)
+    published = configs.get_config(arch)
+    cut = FAMILY_CUTS.get(arch, {})
+    cfg = published.with_(**cut)
+    reduced = {k: {"published": getattr(published, k), "run": v}
+               for k, v in cut.items()}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = registry.get_model(cfg).init(
@@ -1362,6 +1379,10 @@ def family_phase(arch: str, card: str) -> dict:
     if n_front:
         batch["patch_embeds"] = rng.standard_normal(
             (FAMILY_B, n_front, cfg.d_model)).astype(np.float32)
+    n_frames = FAMILY_PROMPT if cfg.frontend == "frame" else 0
+    if n_frames:
+        batch["frame_embeds"] = rng.standard_normal(
+            (FAMILY_B, n_frames, cfg.d_model)).astype(np.float32)
     max_len = n_front + FAMILY_PROMPT + FAMILY_NEW + 4
 
     eng = ServeEngine(cfg=cfg, params=params,
@@ -1408,7 +1429,8 @@ def family_phase(arch: str, card: str) -> dict:
     del bad, rec["state"]
     out = dict(arch=arch, card=card, params=n_params, ct_bytes=ct_bytes,
                tag_bytes=tag_bytes, setup_s=setup_s, max_len=max_len,
-               n_front=n_front, plain=plain, sealed=run,
+               n_front=n_front, n_frames=n_frames, reduced=reduced,
+               plain=plain, sealed=run,
                logit_diff=logit_diff, cases=cases, poisoned=poisoned)
     if arch == "qwen3-4b":
         eng.cfg = cfg.with_(fused_sealed_attention=True)
@@ -1478,8 +1500,10 @@ def print_family(f: dict, card: str) -> None:
             continue
         label = {"plain": "insecure", "sealed": "sealed",
                  "fused": "sealed fused"}[name]
+        front = (f"{f['n_frames']} encoder frames, " if f["n_frames"]
+                 else f"{f['n_front']} patch + ")
         print(f"family {arch} {label}: {FAMILY_B} lanes x {FAMILY_NEW} "
-              f"tokens ({f['n_front']} patch + {FAMILY_PROMPT} prompt "
+              f"tokens ({front}{FAMILY_PROMPT} prompt "
               f"positions, max_len {f['max_len']}) in {r['wall']:.3f} s "
               f"= {r['tok_per_s']:.2f} tok/s; prefill "
               f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms']:.1f} ms "
@@ -1488,6 +1512,11 @@ def print_family(f: dict, card: str) -> None:
               f"{json.dumps(r['launches'])}"
               + (f"; peak memory {r['peak_bytes'] / 2**30:.2f} GiB"
                  if "peak_bytes" in r else "") + f"; {card}", flush=True)
+    if f["reduced"]:
+        print(f"family {arch}: reduced "
+              + ", ".join(f"{k} {v['run']} of {v['published']}"
+                          for k, v in f["reduced"].items())
+              + " (full width)", flush=True)
     print(f"family {arch}: {f['params']} params, {f['ct_bytes']} "
           f"ciphertext + {f['tag_bytes']} tag bytes, set up in "
           f"{f['setup_s']:.1f} s; sealed tokens == insecure tokens, "
@@ -1563,6 +1592,40 @@ def smoke_reference():
                 for i, pr in enumerate(prompts)]
         outs.append((Runner(eng, ch["p"]).run(reqs), dict(
             (k, pool.stats[k]) for k in pool.stats)))
+    return outs
+
+
+def moe_smoke_reference(arch: str = "llama4-maverick-400b-a17b"):
+    """The SMOKE config served sealed through ServeEngine on the card and
+    on the CPU (float32, TF32 off): tokens of each and the card run's
+    launches.  llama4's pairs exercise moe_every 2 and the layer index of
+    the decode slot's counter rows."""
+    from repro_torch import configs
+    from repro_torch.core.channel import SecureChannel
+    from repro_torch.core.policy import SecurityConfig
+    from repro_torch.core.sealed import tree_leaves, tree_unflatten
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = registry.get_model(cfg).init(
+        torch.Generator().manual_seed(SEED), cfg, "cpu")
+    rng = np.random.RandomState(SEED + 13)
+    batch = {"tokens": rng.randint(0, cfg.vocab, (FAMILY_B, 12))
+             .astype(np.int32)}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ch = SecureChannel(key_words=np.array([11, 12], np.uint32),
+                           key_bytes=bytes(range(32)),
+                           config=SecurityConfig(protect_launch=False),
+                           session_id=70, device=dev)
+        p = tree_unflatten(params, [x.to(dev) for x in tree_leaves(params)])
+        eng = ServeEngine(cfg=cfg, params=ch.upload_tree(p), channel=ch,
+                          max_len=12 + FAMILY_NEW + 4)
+        zero_launches()
+        outs[dev] = eng.generate(batch, FAMILY_NEW)
+        torch.cuda.synchronize()
+        outs[dev + "_launches"] = read_launches()
     return outs
 
 
@@ -1831,6 +1894,16 @@ def main() -> int:
         print_family(fams[arch], card)
     print(f"families: {len(fams)} configurations in "
           f"{time.perf_counter() - t_fam:.1f} s", flush=True)
+    ref = moe_smoke_reference()
+    check(np.array_equal(ref["cpu"], ref["cuda"]),
+          f"llama4 smoke tokens differ: {ref['cpu'].tolist()} vs "
+          f"{ref['cuda'].tolist()}")
+    check(ref["cuda_launches"]["ctr_cipher"] > 0
+          and ref["cuda_launches"]["tree_mac"] > 0,
+          f"llama4 smoke launched {ref['cuda_launches']}")
+    print(f"reference: llama4-maverick-400b-a17b smoke config sealed on cuda"
+          f" == cpu, {ref['cuda'].size} tokens, launches "
+          f"{json.dumps(ref['cuda_launches'])}", flush=True)
 
     # 11. report ----------------------------------------------------------
     sources = {"ctr_cipher": ("src/repro_torch/csrc/ctr_cipher.cu",

@@ -6,7 +6,10 @@
 //
 //   tag = canon( sum_j mulmod(fold(w_j) + 1, key[n, j])
 //                + mulmod(pos + 1, key[n, 0]) )  mod 2^31 - 1,
-//   pos = canon(((r * n_chunks + c) * 0x9E3779B1) mod 2^32).
+//   pos = canon((((row0 + r) * n_chunks + c) * 0x9E3779B1) mod 2^32),
+//
+// row0 the item's first row (0 unless the launch is a slab of rows of a
+// larger item, below), all in uint32 arithmetic as in the reference.
 //
 // Unlike the Pallas kernel, cw is any positive divisor of the row's word
 // count (block_tags picks the smallest chunk count that divides it: cw = 2
@@ -35,10 +38,15 @@
 //     chunk the warp visits; a shuffle tree over the G lanes;
 //   general (any other cw or alignment): a group of lanes per chunk, keys
 //     read per word, the same aligned vectors and funnel shift.
-// - Indices within an item are 32-bit (the largest leaf, w_gate stacked,
-//   is 335.5 M words); only the row's base offset is 64-bit, and a
-//   multiplication.  Rows and chunks come from blockIdx and loop counters,
-//   and every division is by a compile-time constant.
+// - Indices within a launch's item are 32-bit: an item holds fewer than
+//   2^31 words.  The wrapper (kernels/tree_mac/ops.py) launches a larger
+//   item (moonshot's stacked expert w_gate at 24 layers: 2.21 G words) as
+//   slabs of rows, each under that limit and starting 16-byte aligned,
+//   passing each slab's first row as row0: only the chunk positions see
+//   it, so the tags are those of one launch over the whole item.  Only a
+//   row's base offset is 64-bit, and a multiplication.  Rows and chunks
+//   come from blockIdx and loop counters, and every division is by a
+//   compile-time constant.
 // - Lazy sums: a word w < 2^32 times a canonical key <= 2^31 - 2 is under
 //   2^63 - 2^33, so two products and an accumulator below 5 * 2^31 stay
 //   under 2^64 - 2^33 without a fold; one fold (a == (a & p) + (a >> 31)
@@ -113,7 +121,7 @@ template <int CW>
 __global__ void __launch_bounds__(kThreads) mac_small_kernel(
     const uint4* __restrict__ x, const uint32_t* __restrict__ keys,
     uint32_t* __restrict__ tags, uint32_t n_rows, uint64_t row_bytes,
-    uint32_t words, uint32_t n_chunks, bool odd16) {
+    uint32_t words, uint32_t n_chunks, bool odd16, uint32_t row0) {
   const int lane = threadIdx.x & 31;
   const uint32_t n = blockIdx.z;
   const uint32_t lv0 = (blockIdx.x * kWarps + threadIdx.x / 32) * kSegment;
@@ -130,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) mac_small_kernel(
     const Row row = row_at(x, n, n_rows, r, row_bytes, words);
     if (lv0 > row.lv_last) continue;   // the whole warp
     uint32_t* trow = tags + (static_cast<uint64_t>(n) * n_rows + r) * n_chunks;
-    const uint32_t ibase = r * n_chunks;
+    const uint32_t ibase = (row0 + r) * n_chunks;
     uint4 v[kSmallVectors];
 #pragma unroll
     for (int u = 0; u < kSmallVectors; ++u) {
@@ -199,11 +207,12 @@ __global__ void __launch_bounds__(kThreads) mac_small_kernel(
 
 // wide: chunk i of an item is vectors [i cw/4, (i+1) cw/4); lane lg of its
 // group of G reads vectors lg + G u (u < 4), always at the same word
-// positions of the chunk, so it keeps those 16 keys and their sum.
+// positions of the chunk, so it keeps those 16 keys and their sum.  Its
+// position index is pos0 + i (pos0 = row0 * n_chunks mod 2^32).
 template <int G>
 __global__ void __launch_bounds__(kThreads) mac_wide_kernel(
     const uint4* __restrict__ x, const uint32_t* __restrict__ keys,
-    uint32_t* __restrict__ tags, uint32_t chunks) {
+    uint32_t* __restrict__ tags, uint32_t chunks, uint32_t pos0) {
   constexpr uint32_t kVecs = 4 * G;   // vectors of a chunk (cw = 16 G)
   constexpr uint32_t kPerWarp = 32 / G;
   const int lane = threadIdx.x & 31;
@@ -247,7 +256,7 @@ __global__ void __launch_bounds__(kThreads) mac_wide_kernel(
 #pragma unroll
     for (int o = G / 2; o > 0; o >>= 1)
       s = repro::fold32(s + __shfl_xor_sync(0xFFFFFFFFu, s, o));
-    if (lg == 0 && valid) ti[i] = finish(s, i, k[0]);
+    if (lg == 0 && valid) ti[i] = finish(s, pos0 + i, k[0]);
   }
 }
 
@@ -257,7 +266,8 @@ template <int G>
 __global__ void __launch_bounds__(kThreads) mac_general_kernel(
     const uint4* __restrict__ x, const uint32_t* __restrict__ keys,
     uint32_t* __restrict__ tags, uint32_t n_rows, uint64_t row_bytes,
-    uint32_t words, uint32_t n_chunks, uint32_t cw, bool odd16) {
+    uint32_t words, uint32_t n_chunks, uint32_t cw, bool odd16,
+    uint32_t row0) {
   const int lane = threadIdx.x & 31;
   const uint32_t lg = lane % G;
   const uint32_t c = blockIdx.x * (kThreads / G) + threadIdx.x / G;
@@ -297,17 +307,18 @@ __global__ void __launch_bounds__(kThreads) mac_general_kernel(
       s = repro::fold32(s + __shfl_xor_sync(gmask, s, o, G));
     if (lg == 0)
       tags[(static_cast<uint64_t>(n) * n_rows + r) * n_chunks + c] =
-          finish(s, r * n_chunks + c, k0);
+          finish(s, (row0 + r) * n_chunks + c, k0);
   }
 }
 
 using RowKernel = void (*)(const uint4*, const uint32_t*, uint32_t*,
-                          uint32_t, uint64_t, uint32_t, uint32_t, bool);
+                          uint32_t, uint64_t, uint32_t, uint32_t, bool,
+                          uint32_t);
 using GeneralKernel = void (*)(const uint4*, const uint32_t*, uint32_t*,
                                uint32_t, uint64_t, uint32_t, uint32_t,
-                               uint32_t, bool);
+                               uint32_t, bool, uint32_t);
 using WideKernel = void (*)(const uint4*, const uint32_t*, uint32_t*,
-                            uint32_t);
+                            uint32_t, uint32_t);
 
 // by cw - 1; by log2(G) - 1 for G = 2 ... 32
 constexpr RowKernel kSmall[] = {
@@ -328,11 +339,12 @@ int log2_floor(uint32_t v) { return 31 - __builtin_clz(v); }
 // x: N x R x E elements of elem_bytes (2 or 4), contiguous, 16-byte
 // aligned; a row is W = ceil(E * elem_bytes / 4) words, W % cw == 0 and
 // R * W < 2^31.  keys: uint32[N, cw] canonical, 16-byte aligned.  tags:
-// uint32[N, R, W / cw].  Returns cudaGetLastError().
+// uint32[N, R, W / cw].  row0: the rows' index in their items (a slab of
+// a larger item starts at row0; else 0).  Returns cudaGetLastError().
 extern "C" int mac_tags_launch(const void* x, const void* keys, void* tags,
                                int64_t n_items, int64_t n_rows,
                                int64_t n_elems, int elem_bytes, int cw,
-                               void* stream) {
+                               uint32_t row0, void* stream) {
   const uint64_t row_bytes = static_cast<uint64_t>(n_elems) * elem_bytes;
   const uint32_t words = static_cast<uint32_t>((row_bytes + 3) / 4);
   const uint32_t nc = words / cw;
@@ -349,7 +361,7 @@ extern "C" int mac_tags_launch(const void* x, const void* keys, void* tags,
     const uint32_t segs = (((words + 2) >> 2) + kSegment) / kSegment;
     grid.x = (segs + kWarps - 1) / kWarps;
     kSmall[cw - 1]<<<grid, kThreads, 0, s>>>(xv, k, t, R, row_bytes, words,
-                                             nc, odd16);
+                                             nc, odd16, row0);
   } else if (row_bytes % 4 == 0 && cw >= 32 && cw <= 512 && !(cw & (cw - 1))) {
     // G = cw / 16 lanes a chunk; a grid-stride loop over the item's chunks
     const int g = log2_floor(cw / 16);
@@ -361,14 +373,15 @@ extern "C" int mac_tags_launch(const void* x, const void* keys, void* tags,
         ((chunks + per_warp - 1) / per_warp + kWarps - 1) / kWarps;
     const uint32_t wave = (sms * kWideBlocksPerSm + N - 1) / N;
     const dim3 wide(need < wave ? need : wave, N);
-    kWide[g - 1]<<<wide, kThreads, 0, s>>>(xv, k, t, chunks);
+    kWide[g - 1]<<<wide, kThreads, 0, s>>>(xv, k, t, chunks, row0 * nc);
   } else {
     // G = the largest power of two <= cw / 4, from 2 to 32
     int g = log2_floor(static_cast<uint32_t>(cw) / 4);
     g = g < 1 ? 1 : (g > 5 ? 5 : g);
     grid.x = (nc + (kThreads >> g) - 1) / (kThreads >> g);
     kGeneral[g - 1]<<<grid, kThreads, 0, s>>>(
-        xv, k, t, R, row_bytes, words, nc, static_cast<uint32_t>(cw), odd16);
+        xv, k, t, R, row_bytes, words, nc, static_cast<uint32_t>(cw), odd16,
+        row0);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,11 +10,13 @@ requests have mixed prompt lengths and share one sealed paged KV pool.
 slots or pages run out it preempts running low-priority requests, whose
 sealed KV swaps verbatim into the SealedStore host tier and back.
 ``--engine fixed`` runs the fixed-slot ``ServeEngine`` over equal-length
-prompts instead; the VLM, RWKV and hybrid families have no paged path and
-always take it (with a message under ``--engine gateway``).  ``--watch N``
+prompts instead; the VLM, MoE, RWKV, hybrid and encoder-decoder families
+have no paged path and always take it (with a message under ``--engine
+gateway``).  ``--watch N``
 prints the posture dashboard to stderr every N steps; ``--slo name=value``
-tunes the streaming monitor's thresholds.  Weights and the VLM's patch
-embeddings are random, from a seeded ``torch.Generator`` and numpy.
+tunes the streaming monitor's thresholds.  Weights, the VLM's patch
+embeddings and the encoder-decoder's frame embeddings (one frame a prompt
+position) are random, from a seeded ``torch.Generator`` and numpy.
 """
 from __future__ import annotations
 
@@ -117,6 +119,9 @@ def _run_fixed(cfg, params, args, device) -> None:
     if n_front:
         batch["patch_embeds"] = np.random.RandomState(2).standard_normal(
             (args.slots, n_front, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "frame":
+        batch["frame_embeds"] = np.random.RandomState(2).standard_normal(
+            (args.slots, args.max_prompt, cfg.d_model)).astype(np.float32)
     t0 = time.perf_counter()
     out = engine.generate(batch, n_new=args.max_new)
     dt = time.perf_counter() - t0

@@ -1,5 +1,6 @@
-"""ModelConfig — the fields of the ported families (dense, vlm, rwkv,
-hybrid) that serving and training read, and the training shape cell.
+"""ModelConfig — the fields of the ported families (dense, vlm, moe, rwkv,
+hybrid, encdec) that serving and training read, and the training shape
+cell.
 
 A subset of ``repro.models.config`` with the same field names and
 defaults; dtypes are names mapped to torch dtypes.
@@ -12,6 +13,17 @@ import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 1
+    capacity_factor: float = 1.25
+    shared_expert: bool = False
+    d_ff_shared: int = 0          # shared-expert hidden (0 => same as d_ff)
+    moe_every: int = 1            # 2 => alternate dense/MoE layers (llama4)
+    d_ff_dense: int = 0           # dense-layer hidden when interleaved
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +48,15 @@ class RWKVConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    n_enc_layers: int = 24
+    n_dec_layers: int = 24
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense | vlm | rwkv | hybrid (ported)
+    family: str                   # dense | moe | rwkv | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,18 +69,26 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     # family sub-configs
+    moe: MoEConfig = MoEConfig()
     ssm: SSMConfig = SSMConfig()
     hybrid: HybridConfig = HybridConfig()
     rwkv: RWKVConfig = RWKVConfig()
-    # modality frontend: 'none' | 'patch' (vlm); the caller passes the
-    # precomputed patch embeddings
+    encdec: EncDecConfig = EncDecConfig()
+    # modality frontend: 'none' | 'patch' (vlm) | 'frame' (audio, encdec);
+    # the caller passes the precomputed patch or frame embeddings
     frontend: str = "none"
-    n_frontend_tokens: int = 256  # patches per image
+    n_frontend_tokens: int = 256  # patches per image / context frames
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     q_block: int = 512            # blocked-attention query block
     scan_layers: bool = True      # the reference's layer scan (a Python
                                   # loop here either way)
+    moe_dispatch_shards: int = 0  # >1: shard-local MoE dispatch (each of
+                                  # that many token segments packs its own
+                                  # slice of the capacity axis; changes
+                                  # which tokens are dropped)
+    moe_ep: bool = False          # expert-parallel dispatch (the reference
+                                  # takes it only under a mesh; not ported)
     fused_sealed_attention: bool = False  # fixed-slot decode: the sealed
                                   # flash-decode kernel reads the sealed
                                   # cache directly (bf16 activations only)

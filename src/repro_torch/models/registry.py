@@ -1,5 +1,5 @@
-"""Family registry — a uniform API over the ported model families (torch
-port of ``repro.models.registry``).
+"""Family registry — a uniform API over the model families (torch port of
+``repro.models.registry``).
 
 Every family module exposes:
     init(generator, cfg, device) -> params
@@ -13,40 +13,39 @@ from __future__ import annotations
 
 import types
 
-from . import rwkv, ssm, transformer
+from . import encdec, moe, rwkv, ssm, transformer
 
 _FAMILY = {
     "dense": transformer,
     "vlm": transformer,      # patch frontend handled by _embed_inputs
+    "moe": moe,
     "rwkv": rwkv,
     "hybrid": ssm,
+    "encdec": encdec,
 }
-
-_NOT_PORTED = ("moe", "encdec")
 
 params_from_numpy = transformer.params_from_numpy
 
 
-def _check(cfg) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise ValueError(f"the {cfg.family} family is not yet ported "
-                         f"(ported: {', '.join(sorted(_FAMILY))})")
+def get_model(cfg) -> types.ModuleType:
     if cfg.family not in _FAMILY:
         raise ValueError(f"unknown model family {cfg.family!r}")
-
-
-def get_model(cfg) -> types.ModuleType:
-    _check(cfg)
     return _FAMILY[cfg.family]
 
 
-def make_decode_state(cfg, batch: int, max_len: int, sealed: bool = False,
-                      device="cuda"):
-    """Uniform decode-state/cache constructor across families."""
-    _check(cfg)
+def make_decode_state(cfg, batch: int, max_len: int, src_len: int = 0,
+                      sealed: bool = False, device="cuda"):
+    """Uniform decode-state/cache constructor across families; ``src_len``
+    is the encoder-decoder's source length (its cross KV)."""
+    get_model(cfg)
     if cfg.family in ("dense", "vlm"):
         return transformer.init_cache(cfg, batch, max_len, sealed,
                                       device=device)
+    if cfg.family == "moe":
+        return moe.init_cache(cfg, batch, max_len, sealed, device=device)
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, src_len, sealed,
+                                 device=device)
     if cfg.family == "rwkv":
         return (rwkv.init_state_sealed(cfg, batch, device=device) if sealed
                 else rwkv.init_state(cfg, batch, device=device))

@@ -204,9 +204,10 @@ def _slot_rows(B: int, T: int, K: int, pos: int, device) -> torch.Tensor:
 
 def seal_layers(ks: torch.Tensor, vs: torch.Tensor, key: torch.Tensor,
                 nonce: int):
-    """Seal a plaintext cache [L, B, T, K, hd] layer by layer under the
-    per-(epoch, layer) nonces; one CTR launch per cache (the layers are the
-    items of one batch)."""
+    """Seal a plaintext cache [L, B, T, K, hd] (the MoE's
+    [units, lpu, B, T, K, hd]) layer by layer under the per-(epoch, layer)
+    nonces; one CTR launch per cache (the layers are the items of one
+    batch)."""
     n = ks.shape[0]
     nk, nv = zip(*(_kv_nonces(nonce, l) for l in range(n)))
     keys = key.reshape(1, 2).expand(n, 2)

@@ -1,9 +1,11 @@
 """Serving engines with sealed KV caches (torch port of ``repro.serve.engine``).
 
 ``ServeEngine`` — the fixed-slot engine: one sealed decode state per batch
-(the [L, B, max_len] KV cache of the dense and VLM families, the recurrent
-state of RWKV, the SSM states and shared-attention KV of the hybrid),
-equal-length prompts, whole-batch nonce epochs, over the family's
+(the [L, B, max_len] KV cache of the dense and VLM families, the
+[units, lpu, B, max_len] cache of the MoE, the self and cross KV of the
+encoder-decoder, the recurrent state of RWKV, the SSM states and
+shared-attention KV of the hybrid), equal-length prompts, whole-batch
+nonce epochs, over the family's
 ``prefill`` / ``decode_step`` from ``models.registry``.  With
 ``cfg.fused_sealed_attention`` the dense decode reads the sealed cache
 through the sealed flash-decode kernel.
@@ -62,8 +64,9 @@ def unseal_params(params, key: torch.Tensor, sealed: bool):
 class ServeEngine:
     """Greedy generation for a batch of equal-length prompts over one
     fixed-slot decode state, sealed under the channel's KV subkey when the
-    channel's security is on.  The dense transformer updates its cache in
-    place; the recurrent families return new state dicts."""
+    channel's security is on.  The dense, MoE and encoder-decoder models
+    update their caches in place; the recurrent families return new state
+    dicts."""
     cfg: object
     params: object                  # sealed tree if channel.config.enabled
     channel: SecureChannel
@@ -100,7 +103,9 @@ class ServeEngine:
 
     def generate(self, batch: dict, n_new: int):
         """batch: {'tokens': int [B, S]} (and ``patch_embeds`` [B, n, D]
-        for the VLM).  Greedy decode -> numpy [B, n_new]."""
+        for the VLM, ``frame_embeds`` [B, T_src, D] for the
+        encoder-decoder; the launch record keeps every input's shape).
+        Greedy decode -> numpy [B, n_new]."""
         batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
                  for k, v in batch.items()}
         nonce = self._nonce_epoch & common.M32

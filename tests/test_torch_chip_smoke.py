@@ -150,3 +150,29 @@ def test_step_sums_count_each_leaf_of_a_case():
     assert s["general_bound_ms"] == pytest.approx(0.4)
     assert s["general_bytes"] == 20 and s["bytes"] == 27
     assert s["plain_ms"] == 10.0
+
+
+def test_families_phase_serves_moe_and_encdec_with_moonshot_cut_to_fit():
+    """The families list names moonshot-v1-16b-a3b and
+    seamless-m4t-large-v2; moonshot is cut to 24 of its 48 layers at full
+    width, because a sealed decode step holds the tree's ciphertext and
+    plaintext at once: 2 x 29.6 GB fits the 80 GB card, 2 x 58 GB would
+    not."""
+    from repro_torch import configs
+
+    assert {"moonshot-v1-16b-a3b",
+            "seamless-m4t-large-v2"} <= set(chip_smoke.FAMILY_ARCHS)
+    assert chip_smoke.FAMILY_CUTS == {"moonshot-v1-16b-a3b": {"n_layers": 24}}
+    cfg = configs.get_config("moonshot-v1-16b-a3b")
+    assert cfg.n_layers == 48 and cfg.d_model == 2048
+
+    def weight_bytes(n_layers):
+        D, m = cfg.d_model, cfg.moe
+        layer = (3 * m.n_experts * D * cfg.d_ff * 2        # experts
+                 + 3 * D * m.d_ff_shared * 2               # shared expert
+                 + D * m.n_experts * 4                     # f32 router
+                 + 4 * D * cfg.n_heads * cfg.hd * 2 + 2 * D * 2)
+        return n_layers * layer + 2 * cfg.vocab * D * 2 + D * 2
+
+    assert 29.5e9 < weight_bytes(24) < 29.7e9
+    assert 2 * weight_bytes(24) < 80e9 < 2 * weight_bytes(48)

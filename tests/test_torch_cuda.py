@@ -124,11 +124,13 @@ def test_tree_mac_kernel_at_extreme_words_and_keys(gen, n, r, e, dtype, cw):
 
 
 # row widths and chunk widths of the weight leaves of qwen3-4b (2560, 9728),
-# rwkv6-3b (8960, 160), internvl2-2b's odd-width unembed (92553) and
-# zamba2-1.2b (in_proj 8384, conv 4224, unembed 32000): none of the chunk
-# widths is a power of two, so all take the general path
+# rwkv6-3b (8960, 160), internvl2-2b's odd-width unembed (92553),
+# zamba2-1.2b (in_proj 8384, conv 4224, unembed 32000), moonshot's experts
+# and shared expert (1408: general path) and seamless's unembed (256206,
+# cw 3: small path): none of the chunk widths is a power of two
 FAMILY_WIDTHS = [(92553, 77), (8384, 262), (9728, 304), (2560, 320),
-                 (4224, 352), (8960, 448), (32000, 500), (160, 80)]
+                 (4224, 352), (8960, 448), (32000, 500), (160, 80),
+                 (1408, 352), (256206, 3)]
 
 
 @pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
@@ -152,6 +154,89 @@ def test_tree_mac_kernel_at_the_families_widths(gen, e, cw, extreme):
     assert torch.equal(out, mac_ref.mac_tags_ref(x, keys, cw))
     assert torch.equal(out[:, 2:], mac_ref.mac_tags_ref(x[:, 2:], keys, cw,
                                                         row0=2))
+
+
+@pytest.mark.parametrize("n, r, e, dtype, cw, limit", [
+    (2, 37, 1408, torch.int16, 352, 704 * 5 + 3),   # general, 5-row slabs
+    (1, 29, 79, torch.int16, 8, 40 * 11),           # small, odd rows
+    (3, 17, 128, torch.int32, 32, 128 * 6),         # wide
+    (1, 19, 4099, torch.int16, 2, 2050 * 8 + 5)])   # small, cw 2
+def test_tree_mac_kernel_tags_an_item_over_the_limit_in_row_slabs(
+        gen, monkeypatch, n, r, e, dtype, cw, limit):
+    """An item of more words than ``MAX_ITEM_WORDS`` (lowered here, so the
+    slabs are small): one launch per slab of ``slab_rows`` rows and item,
+    each slab starting 16-byte aligned, and the tags of the whole item
+    bit-exact against the plain version."""
+    monkeypatch.setattr(mac_ops, "MAX_ITEM_WORDS", limit)
+    x = bits(gen, (n, r, e), dtype)
+    keys = (bits(gen, (n, cw), torch.int64) & 0x7FFFFFFE).to(torch.int32)
+    rows = mac_ops.slab_rows(r, e * x.element_size())
+    assert rows < r and rows * e * x.element_size() % 16 == 0
+    before = mac_ops.mac_tags.launches
+    out = mac_ops.mac_tags(x, keys)
+    torch.cuda.synchronize()
+    assert mac_ops.mac_tags.launches == before + n * -(-r // rows)
+    assert torch.equal(out, mac_ref.mac_tags_ref(x, keys, cw))
+
+
+@pytest.mark.parametrize("e, dtype, cw", [
+    (1408, torch.int16, 352), (79, torch.int16, 8), (128, torch.int32, 32)])
+def test_tree_mac_kernel_positions_wrap_at_row0(gen, e, dtype, cw):
+    """A slab at row0 whose chunk positions (row0 + r) n_chunks + c pass
+    2^32: the kernel's uint32 positions wrap as the plain version's (and
+    the reference's) do, on the general, small and wide paths."""
+    x = bits(gen, (1, 6, e), dtype)
+    keys = (bits(gen, (1, cw), torch.int64) & 0x7FFFFFFE).to(torch.int32)
+    nc = -(-e * x.element_size() // 4) // cw
+    row0 = 2**32 // nc - 3
+    out = torch.empty((1, 6, nc), dtype=torch.int32, device="cuda")
+    mac_ops._launch(x, keys, out, row0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mac_ref.mac_tags_ref(x, keys, cw, row0=row0))
+    assert not torch.equal(out, mac_ref.mac_tags_ref(x, keys, cw))
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "llama4-maverick-400b-a17b",
+                                  "seamless-m4t-large-v2"])
+def test_moe_and_encdec_smoke_sealed_on_the_card_match_the_cpu(gen, arch):
+    """The SMOKE config served sealed through ServeEngine on the card and
+    on the CPU (float32, TF32 off), same weights, prompts, frame
+    embeddings and keys: the same greedy tokens, CTR and MAC launched."""
+    from repro_torch import configs
+    from repro_torch.core.channel import SecureChannel
+    from repro_torch.core.policy import SecurityConfig
+    from repro_torch.core.sealed import tree_leaves, tree_unflatten
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = registry.get_model(cfg).init(torch.Generator().manual_seed(1),
+                                          cfg, "cpu")
+    rng = np.random.RandomState(2)
+    batch = {"tokens": rng.randint(0, cfg.vocab, (3, 9)).astype(np.int32)}
+    if cfg.frontend == "frame":
+        batch["frame_embeds"] = rng.standard_normal(
+            (3, 11, cfg.d_model)).astype(np.float32)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs = []
+    try:
+        for dev in ("cpu", "cuda"):
+            ch = SecureChannel(key_words=np.array([7, 8], np.uint32),
+                               key_bytes=bytes(range(32)),
+                               config=SecurityConfig(protect_launch=False),
+                               session_id=60, device=dev)
+            p = tree_unflatten(params, [x.to(dev) for x in tree_leaves(params)])
+            eng = ServeEngine(cfg=cfg, params=ch.upload_tree(p), channel=ch,
+                              max_len=9 + 6 + 2)
+            c0, m0 = ctr_ops.ctr_xor.launches, mac_ops.mac_tags.launches
+            outs.append(eng.generate(batch, 6))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert ctr_ops.ctr_xor.launches > c0 and mac_ops.mac_tags.launches > m0
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def sealed_cache(gen, B, T, K, G, hd):

@@ -21,7 +21,11 @@ SLICE_MODULES = (
     "repro_torch.models.registry", "repro_torch.models.rwkv",
     "repro_torch.models.ssm", "repro_torch.configs.qwen3_4b",
     "repro_torch.configs.minitron_8b", "repro_torch.configs.internvl2_2b",
-    "repro_torch.configs.rwkv6_3b", "repro_torch.configs.zamba2_1_2b")
+    "repro_torch.configs.rwkv6_3b", "repro_torch.configs.zamba2_1_2b",
+    "repro_torch.models.moe", "repro_torch.models.encdec",
+    "repro_torch.configs.moonshot_v1_16b_a3b",
+    "repro_torch.configs.llama4_maverick_400b_a17b",
+    "repro_torch.configs.seamless_m4t_large_v2")
 
 PROBE = """
 import pkgutil, sys

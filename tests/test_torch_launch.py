@@ -24,10 +24,14 @@ def test_serve_main_on_cpu(capsys, extra, want):
         assert out.count("(done") == 3
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "internvl2-2b",
+                                  "moonshot-v1-16b-a3b",
+                                  "llama4-maverick-400b-a17b",
+                                  "seamless-m4t-large-v2"])
 def test_serve_main_other_families_on_cpu(capsys, arch):
     """No paged path: the gateway engine says so and serves through the
-    fixed-slot engine (the VLM's 8 patch tokens counted in its cache)."""
+    fixed-slot engine (the VLM's 8 patch tokens counted in its cache; the
+    encoder-decoder's frame embeddings as long as the prompt)."""
     serve.main(["--arch", arch, "--device", "cpu"])
     out = capsys.readouterr().out
     assert "no paged path yet; falling back to the fixed-slot engine" in out

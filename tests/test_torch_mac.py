@@ -178,3 +178,23 @@ def test_plain_tags_of_extreme_words_and_keys_match_reference(shape, dtype,
                                     jnp.asarray(keys)))
     got = tmac.mac_tags(to_t(ct)[None], to_t(keys)[None])[0]
     np.testing.assert_array_equal(want, to_np(got).reshape(-1))
+
+
+@pytest.mark.parametrize("n_rows, row_bytes", [
+    (24 * 64 * 2048, 1408 * 2), (48 * 64 * 2048, 1408 * 2),
+    (9_000_000, 79 * 2), (3_000_000, 2049 * 4), (1000, 1408 * 2)])
+def test_slab_rows_keep_each_launch_under_the_item_limit(n_rows, row_bytes):
+    """The MAC wrapper's row slabs: the whole item when it fits
+    MAX_ITEM_WORDS words, else slabs under the limit whose starts stay
+    16-byte aligned (moonshot's stacked w_gate at 24 and 48 layers takes
+    2 and 3 slabs)."""
+    words = -(-row_bytes // 4)
+    rows = tmac.slab_rows(n_rows, row_bytes)
+    if n_rows * words <= tmac.MAX_ITEM_WORDS:
+        assert rows == n_rows
+        return
+    assert rows * words <= tmac.MAX_ITEM_WORDS
+    assert rows * row_bytes % 16 == 0
+    assert (rows + 16) * words > tmac.MAX_ITEM_WORDS
+    if row_bytes == 2816:
+        assert -(-n_rows // rows) == n_rows // (24 * 64 * 2048) + 1

@@ -2,9 +2,9 @@
 ported family, against the JAX reference on the SMOKE configs.
 
 ``make_decode_state`` gives the reference's shapes and dtypes (ciphertext
-dtypes when sealed); ``get_model`` names the families not yet ported.
-Greedy generation of the port's sealed ``ServeEngine`` equals the
-reference engine's on the same weights, prompts and patch embeddings.
+dtypes when sealed) for every family.  Greedy generation of the port's
+sealed ``ServeEngine`` equals the reference engine's on the same weights,
+prompts and patch or frame embeddings.
 The reference engine runs without security: its sealed engine gives the
 same tokens (sealing is exact), but its jitted unseal of the weight tree
 takes 40-100 s per family to compile on the CPU; the sealed decode chain
@@ -31,16 +31,21 @@ from repro_torch.core import policy as tpolicy  # noqa: E402
 from repro_torch.core import registers as tregs  # noqa: E402
 from repro_torch.core import sealed as tsealed  # noqa: E402
 from repro_torch.models import registry as tregistry  # noqa: E402
-from repro_torch.models import rwkv, ssm, transformer  # noqa: E402
+from repro_torch.models import encdec, moe, rwkv, ssm  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-ARCHS = ("rwkv6-3b", "zamba2-1.2b", "internvl2-2b", "qwen3-4b")
+ARCHS = ("rwkv6-3b", "zamba2-1.2b", "internvl2-2b", "qwen3-4b",
+         "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
+         "seamless-m4t-large-v2")
 FAMILY_ARCH = {"dense": "qwen3-4b", "vlm": "internvl2-2b",
-               "rwkv": "rwkv6-3b", "hybrid": "zamba2-1.2b"}
+               "rwkv": "rwkv6-3b", "hybrid": "zamba2-1.2b",
+               "moe": "moonshot-v1-16b-a3b",
+               "encdec": "seamless-m4t-large-v2"}
 KEY_WORDS = np.array([0x0BADF00D, 0xC0FFEE11], np.uint32)
 KEY_BYTES = bytes(range(32))
 B, S, N_NEW = 3, 9, 6
@@ -76,26 +81,23 @@ def test_archs_and_families():
             for f in ("family", "n_layers", "d_model", "n_heads",
                       "n_kv_heads", "d_ff", "vocab", "hd", "qk_norm",
                       "rope_theta", "frontend", "n_frontend_tokens",
-                      "dtype", "param_dtype", "q_block", "sub_quadratic"):
+                      "dtype", "param_dtype", "q_block", "sub_quadratic",
+                      "moe_dispatch_shards", "moe_ep"):
                 assert getattr(got, f) == getattr(want, f), (arch, f)
-            for sub in ("ssm", "hybrid", "rwkv"):
+            for sub in ("ssm", "hybrid", "rwkv", "moe", "encdec"):
                 assert (vars(getattr(got, sub))
                         == vars(getattr(want, sub))), (arch, sub)
     assert tregistry.get_model(tconfigs.get_config("rwkv6-3b")) is rwkv
     assert tregistry.get_model(tconfigs.get_config("zamba2-1.2b")) is ssm
     assert tregistry.get_model(
         tconfigs.get_config("internvl2-2b")) is transformer
-
-
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
-                                  "seamless-m4t-large-v2"])
-def test_unported_families_are_named(arch):
-    family = jconfigs.get_config(arch).family
-    cfg = tconfigs.get_config("granite-3-2b").with_(family=family)
-    with pytest.raises(ValueError, match=f"{family} family is not yet ported"):
-        tregistry.get_model(cfg)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tregistry.make_decode_state(cfg, 1, 8, device="cpu")
+    for arch in ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"):
+        assert tregistry.get_model(tconfigs.get_config(arch)) is moe
+    assert tregistry.get_model(
+        tconfigs.get_config("seamless-m4t-large-v2")) is encdec
+    with pytest.raises(ValueError, match="unknown model family"):
+        tregistry.get_model(tconfigs.get_config("qwen3-4b").with_(
+            family="diffusion"))
 
 
 @pytest.mark.parametrize("sealed", [False, True], ids=["plain", "sealed"])
@@ -104,8 +106,8 @@ def test_make_decode_state_matches_reference(family, sealed):
     arch = FAMILY_ARCH[family]
     jcfg = jconfigs.get_config(arch, smoke=True)
     tcfg = tconfigs.get_config(arch, smoke=True)
-    want = jregistry.make_decode_state(jcfg, 2, 24, sealed=sealed)
-    got = tregistry.make_decode_state(tcfg, 2, 24, sealed=sealed,
+    want = jregistry.make_decode_state(jcfg, 2, 24, src_len=5, sealed=sealed)
+    got = tregistry.make_decode_state(tcfg, 2, 24, src_len=5, sealed=sealed,
                                       device="cpu")
     assert set(got) == set(want)
     for k, v in want.items():
@@ -133,6 +135,9 @@ def served(request):
     if jcfg.frontend == "patch":
         batch["patch_embeds"] = rng.standard_normal(
             (B, jcfg.n_frontend_tokens, jcfg.d_model)).astype(np.float32)
+    if jcfg.frontend == "frame":
+        batch["frame_embeds"] = rng.standard_normal(
+            (B, S + 2, jcfg.d_model)).astype(np.float32)
     out, engines = {}, {}
     for side in ("jax", "torch"):
         ch = channel(side, security=side == "torch")
