@@ -48,9 +48,7 @@ From the root of a checkout:  python3 chip_smoke.py
    moments) sealed by ``seal_state``, three steps of two 4096-token
    microbatches through ``make_train_step``, resealed in place; finite
    losses, seal_ok, CTR and MAC launched every step, the peak memory and
-   two profiled steps, the first with the QK product as it was before it
-   went to the tensor cores (float32 operands); a flipped bit in a sealed
-   mu leaf poisons the state;
+   a profiled step; a flipped bit in a sealed mu leaf poisons the state;
    then the smoke config trained for 4 steps through ``Supervisor`` (a
    failure at step 2, checkpoint, restart, lane refreshes) on the card and
    on the CPU: losses within 1e-4 relative, the same events;
@@ -77,7 +75,22 @@ From the root of a checkout:  python3 chip_smoke.py
    kernel's row slabs and the CTR kernel past 2^31 words; then
    llama4-maverick-400b-a17b's SMOKE config (dense and MoE layers in
    pairs) served sealed on the card and on the CPU: the same tokens;
-10. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+10. trains every family sealed (the train-families phase) through
+   ``launch/steps.py`` (``make_cell``, ``make_train_step_fn``, in place,
+   every block recomputed): moonshot-v1-16b-a3b at full width cut to 4 of
+   its 48 layers (30.2 GB of sealed state) and seamless-m4t-large-v2 at
+   full size (20.3 GB), three steps of one 4096-token sequence each
+   (seamless: 4096 frame embeddings into its encoder), finite losses,
+   seal_ok, CTR and MAC launched every step, peak memory, one profiled
+   step (busy, idle share, top three kernels), and a flipped bit in a
+   sealed mu leaf that poisons the state; every SMOKE config (the ten
+   ARCH_IDS, llama4 and llama3 with bf16 moments and accumulators) one
+   sealed step on the card and on the CPU within the CPU tests' limits;
+   then ``make_crosspod_grad_hook`` in a one-process NCCL group over
+   moonshot's gradients of one step: quantize off returns them bit for
+   bit, quantize on within half an int8 step, and one pod's seal of the
+   payload through the CTR kernel timed in CUDA graphs against its bound;
+11. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Each path's kernel launch counts are zeroed just before it runs and read
@@ -153,6 +166,21 @@ FAMILY_ARCHS = ("qwen3-4b", "minitron-8b", "internvl2-2b", "rwkv6-3b",
 # 2 x 29.6 GB, at its 48 it would be 2 x 58 GB, more than the 80 GB card
 FAMILY_CUTS = {"moonshot-v1-16b-a3b": {"n_layers": 24}}
 FAMILY_B, FAMILY_PROMPT, FAMILY_NEW = 4, 128, 8
+# the train-families phase: each configuration at its full published width
+# through launch/steps.py (make_cell, make_train_step_fn; every block
+# recomputed), resealed in place, one train_4k sequence of 4096 tokens a
+# step (global batch 256 -> 1), three steps, a profiled one, a tampered one
+TRAIN_FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "seamless-m4t-large-v2")
+# depth cut: the sealed state is 10 bytes a parameter (bf16 weights, f32
+# mu and nu) and a step holds the plaintext weights and the f32 gradient
+# sums beside it: moonshot at 4 of its 48 layers is 3.02 B parameters,
+# 30.2 GB sealed; at 48 it would be 16 B, 160 GB
+TRAIN_FAMILY_CUTS = {"moonshot-v1-16b-a3b": {"n_layers": 4}}
+TRAIN_FAMILY_STEPS = 3
+# the SMOKE configs: one sealed step of two microbatches of 2 x 16 tokens
+# on the card and on the CPU; the cross-pod hook over moonshot's gradients
+SMOKE_TRAIN = dict(seq=16, batch=2, accum=2)
+CROSSPOD_ARCH = "moonshot-v1-16b-a3b"
 SLAB_BYTES = 1 << 28   # rows of a leaf each plain-version call takes
 # granite's MLP products for one such microbatch: (name, M, K, N)
 MLP_PRODUCTS = (("w_gate", 8192, 2048, 8192), ("w_down", 8192, 8192, 2048))
@@ -1013,10 +1041,8 @@ def train_phase(cfg):
     """(e) Sealed training of granite-3-2b at full width and depth: the
     state (params, mu, nu: 26.3 GB of ciphertext) sealed by ``seal_state``,
     three steps of two 4096-token microbatches through ``make_train_step``
-    (resealing in place), two more under the profiler (the first with the
-    QK product's float32 operands, TF32 off, as before it went to the
-    tensor cores), then one flipped bit in a sealed ``mu`` leaf: seal_ok
-    False and a poisoned state."""
+    (resealing in place), one more under the profiler, then one flipped
+    bit in a sealed ``mu`` leaf: seal_ok False and a poisoned state."""
     from repro_torch.core import sealed as sealed_lib
     from repro_torch.core.channel import SecureChannel
     from repro_torch.data import SyntheticLM
@@ -1081,19 +1107,6 @@ def train_phase(cfg):
 
     b = None
     del state
-    # one step with the QK product as it was before it went to the tensor
-    # cores (float32 operands, TF32 off), then one as it is
-    from repro_torch.models import layers
-
-    def f32_qk(q, k):
-        return torch.einsum("bqkgd,btkd->bqkgt", q.float(), k.float())
-
-    qk = layers.qk_logits
-    layers.qk_logits = f32_qk
-    try:
-        profile_f32_qk = profile_step(one_step)
-    finally:
-        layers.qk_logits = qk
     profile = profile_step(one_step)
     # a flipped bit in one sealed mu leaf poisons everything written
     state = held.pop("state")
@@ -1108,8 +1121,7 @@ def train_phase(cfg):
     del state, norm, nu0, b
     torch.cuda.empty_cache()
     return dict(steps=steps, peak_bytes=peak, launches=launches,
-                sealed_bytes=sealed_bytes, profile=profile,
-                profile_f32_qk=profile_f32_qk, reduced=reduced,
+                sealed_bytes=sealed_bytes, profile=profile, reduced=reduced,
                 tokens_per_step=TRAIN_4K.seq_len * TRAIN_ACCUM)
 
 
@@ -1159,6 +1171,279 @@ def smoke_train_reference():
                              refresh_fn=make_refresh_fn(key, sec))
             _, _, events = sup.run(seal_state(opt.init(p), key, sec), 4)
         out[dev] = (losses, events)
+    return out
+
+
+def train_family_reduced(arch: str) -> dict:
+    """The cuts of the train-families phase: {what: [published, run]}."""
+    from repro_torch import configs
+    from repro_torch.models.config import TRAIN_4K
+
+    published = configs.get_config(arch)
+    red = {k: [getattr(published, k), v]
+           for k, v in TRAIN_FAMILY_CUTS.get(arch, {}).items()}
+    red["global_batch"] = [TRAIN_4K.global_batch, 1]
+    red["microbatch"] = [TRAIN_4K.microbatch, 1]
+    return red
+
+
+def train_family_phase(arch: str) -> dict:
+    """(g) Sealed training of one more family at full width through
+    ``steps.make_cell`` and ``steps.make_train_step_fn`` (in place),
+    weights from a seeded torch.Generator on the card: three steps of one
+    4096-token sequence (seamless: as many frame embeddings), each with a
+    finite loss, seal_ok and both kernels launched; the peak memory; one
+    step under the profiler; then a flipped bit in a sealed ``mu`` leaf:
+    seal_ok False and a poisoned state.  For ``CROSSPOD_ARCH`` that last
+    step's gradients (the f32 means the grad hook sees) are kept on the
+    host for ``crosspod_check``."""
+    from repro_torch.core import sealed as sealed_lib
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.kernels.tree_mac import ops as mac_ops
+    from repro_torch.launch import steps
+    from repro_torch.models.config import TRAIN_4K
+    from repro_torch.train import seal_state
+
+    t0 = time.perf_counter()
+    cell = steps.make_cell(arch, "train_4k",
+                           overrides=TRAIN_FAMILY_CUTS.get(arch),
+                           device="cuda")
+    cfg = cell.cfg
+    params = cell.model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                             cfg, "cuda")
+    n_params = sum(x.numel() for x in _leaves(params))
+    state = seal_state(cell.opt.init(params), cell.key, cell.sec)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    sealed_bytes = sum(leaf.nbytes_ct for tree in (state.params, state.mu,
+                                                    state.nu)
+                       for leaf in sealed_lib.tree_leaves(tree))
+    seq = TRAIN_4K.seq_len
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=1)
+    extra = steps.batch_extra(cfg, seq)
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in data.microbatches_at(i, 1, extra).items()}
+
+    step = steps.make_train_step_fn(cell, in_place=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    out_steps = []
+    for i in range(TRAIN_FAMILY_STEPS):
+        b = batch(i)
+        c0, m0 = ctr_ops.ctr_xor.launches, mac_ops.mac_tags.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        out_steps.append(dict(wall_s=time.perf_counter() - t1,
+                              loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]),
+                              seal_ok=bool(m["seal_ok"]),
+                              ctr=ctr_ops.ctr_xor.launches - c0,
+                              mac=mac_ops.mac_tags.launches - m0))
+        s_ = out_steps[-1]
+        check(np.isfinite(s_["loss"]) and s_["seal_ok"],
+              f"{arch} train step {i}: {s_}")
+        check(s_["ctr"] > 0 and s_["mac"] > 0,
+              f"{arch} train step {i} launched no kernel: {s_}")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(int(state.step) == TRAIN_FAMILY_STEPS, f"state at {state.step}")
+    held = {"state": state}
+    del state, b
+
+    def one_step():
+        held["state"], _ = step(held["state"], batch(TRAIN_FAMILY_STEPS))
+
+    profile = profile_step(one_step)
+    profile["top"] = profile["top"][:3]
+    grads = []
+
+    def keep(g, step_no):
+        grads[:] = [x.cpu() for x in sealed_lib.tree_leaves(g)]
+        return g
+
+    tamper = (steps.make_train_step_fn(cell, grad_hook=keep, in_place=True)
+              if arch == CROSSPOD_ARCH else step)
+    state = held.pop("state")
+    mu0 = sealed_lib.tree_leaves(state.mu)[0]
+    mu0.ct.view(-1)[mu0.ct.numel() // 3] ^= 1 << 7
+    state, m = tamper(state, batch(TRAIN_FAMILY_STEPS + 1))
+    norm, _ = sealed_lib.unseal(state.params["final_norm"], cell.key)
+    nu0, _ = sealed_lib.unseal(sealed_lib.tree_leaves(state.nu)[0], cell.key)
+    poisoned = (not bool(m["seal_ok"]) and bool(torch.isnan(norm).all())
+                and bool(torch.isnan(nu0).all()))
+    check(poisoned, f"{arch}: a flipped mu bit did not poison the state")
+    del state, norm, nu0, m
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(arch=arch, params=n_params, sealed_bytes=sealed_bytes,
+                setup_s=setup_s, steps=out_steps, launches=launches,
+                peak_bytes=peak, profile=profile,
+                reduced=train_family_reduced(arch), tokens_per_step=seq,
+                grads=grads, remat=cfg.remat,
+                moments=cell.opt.state_dtype)
+
+
+def ctr_payload_bound(shape, dtype) -> dict:
+    """Bytes, ALU operations and bound of one CTR pass over a payload (read
+    and write every byte; one Threefry block a row's two words, bytes
+    padded to whole words a row)."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    last = shape[-1] if shape else 1
+    rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    words = -(-last * itemsize // 4)
+    blocks = rows * ((words + 1) // 2)
+    nbytes = 2 * int(np.prod(shape)) * itemsize
+    ms, by = bound_of(nbytes, blocks * CTR_ALU_OPS_PER_BLOCK)
+    return {"bytes": nbytes, "alu_ops": blocks * CTR_ALU_OPS_PER_BLOCK,
+            "bound_ms": ms, "bound_by": by}
+
+
+def crosspod_check(grads, key) -> dict:
+    """``make_crosspod_grad_hook`` over one step's gradients in a one-process
+    NCCL group: with one pod the hook seals, gathers, unseals and divides
+    by 1, so quantize off must return the gradients bit for bit and
+    quantize on within half an int8 step of each block's scale.  Each mode:
+    the hook's wall time and launches, and one pod's seal of the payload
+    through the CTR kernel (each leaf in a CUDA graph) against its bound."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.core import cipher
+    from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.parallel import collectives, compress
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        tree = {f"{i:03d}": g.to("cuda") for i, g in enumerate(grads)}
+        payload_bytes = sum(g.numel() * g.element_size()
+                            for g in tree.values())
+        tkeys = cipher.derive_tensor_key(key.reshape(1, 2), 7)
+        for quantize in (False, True):
+            hook = collectives.make_crosspod_grad_hook(key, 1,
+                                                       quantize=quantize)
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = hook(tree, torch.tensor(TRAIN_FAMILY_STEPS + 1))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+            worst = 0.0
+            for k, x in tree.items():
+                if quantize:
+                    _, scale = compress.quantize_int8(x)
+                    lim = scale.repeat_interleave(compress.BLOCK)[
+                        :x.numel()] / 2
+                    err = (got[k] - x).abs().reshape(-1)
+                    worst = max(worst, float((err / lim).max()))
+                else:
+                    check(torch.equal(got[k].view(torch.int32),
+                                      x.view(torch.int32)),
+                          f"crosspod hook changed leaf {k}")
+            check(worst <= 1 + 1e-4, f"crosspod int8 error {worst} steps")
+            del got
+            ms = 0.0
+            bound = {"bytes": 0, "alu_ops": 0}
+            for x in tree.values():
+                parts = (list(compress.quantize_int8(x)) if quantize
+                         else [x])
+                for p in parts:
+                    raw = p.contiguous().view(cipher.uint_dtype_for(p.dtype))
+                    if raw.element_size() == 1:
+                        raw = F.pad(raw, (0, (-raw.shape[-1]) % 4)
+                                    ).contiguous().view(torch.int32)
+                    x3 = raw.reshape(1, -1, raw.shape[-1])
+                    ms += graph_ms(lambda x3=x3: ctr_ops.ctr_xor(x3, tkeys),
+                                   reps=3)
+                    b = ctr_payload_bound(tuple(p.shape), p.dtype)
+                    bound["bytes"] += b["bytes"]
+                    bound["alu_ops"] += b["alu_ops"]
+                    del raw, x3
+                del parts
+            bms, by = bound_of(bound["bytes"], bound["alu_ops"])
+            out["int8" if quantize else "f32"] = dict(
+                wall_ms=wall_ms, launches=launches, ctr_ms=ms,
+                ctr_bound_ms=bms, bound_by=by, ctr_bytes=bound["bytes"],
+                worst_int8_steps=worst if quantize else None)
+        out["payload_bytes"] = payload_bytes
+        out["leaves"] = len(tree)
+    finally:
+        dist.destroy_process_group()
+        del tree
+        torch.cuda.empty_cache()
+    return out
+
+
+def smoke_train_families() -> dict:
+    """Every ARCH_ID's SMOKE config: one sealed step through
+    ``steps.make_cell`` / ``make_train_step_fn`` on the CPU and on the card
+    from the same weights and batch (float32, TF32 off).  Per arch: the
+    loss difference, the parameters' largest difference against lr, the
+    share of entries off the CPU tests' one-step limit, and the card run's
+    launches."""
+    from repro_torch import configs
+    from repro_torch.core.sealed import tree_leaves, tree_unflatten
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.train import seal_state, unseal_state_host
+
+    out = {}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch, smoke=True)
+        params = registry.get_model(cfg).init(
+            torch.Generator().manual_seed(SEED), cfg, "cpu")
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=SMOKE_TRAIN["seq"],
+                           batch=SMOKE_TRAIN["batch"])
+        mb = data.microbatches_at(0, SMOKE_TRAIN["accum"],
+                                  steps.batch_extra(cfg, SMOKE_TRAIN["seq"]))
+        res = {}
+        for dev in ("cpu", "cuda"):
+            cell = steps.make_cell(arch, "train_4k", smoke=True, device=dev)
+            p = tree_unflatten(params, [x.to(dev)
+                                        for x in tree_leaves(params)])
+            state = seal_state(cell.opt.init(p), cell.key, cell.sec)
+            zero_launches()
+            state, m = steps.make_train_step_fn(cell)(
+                state, {k: torch.as_tensor(v, device=dev)
+                        for k, v in mb.items()})
+            launches = read_launches()
+            plain = unseal_state_host(state, cell.key, cell.sec)
+            res[dev] = (float(m["loss"]), bool(m["seal_ok"]),
+                        [x.float().cpu() for x in tree_leaves(plain.params)],
+                        launches)
+        (lc, okc, pc, _), (lg, okg, pg, launches) = res["cpu"], res["cuda"]
+        lr = cell.opt.lr
+        worst = off = total = 0
+        for a0, a, b in zip(tree_leaves(params), pc, pg):
+            dc, dg = a - a0.float(), b - a0.float()
+            err = (dg - dc).abs()
+            worst = max(worst, float(err.max()) / lr)
+            off += int((err > 1e-3 * dc.abs() + 0.05 * lr).sum())
+            total += err.numel()
+        out[arch] = dict(loss_cpu=lc, loss_cuda=lg,
+                         loss_rel=abs(lg - lc) / abs(lc), seal_ok=okc and okg,
+                         worst_over_lr=worst, off_share=off / total,
+                         launches=launches,
+                         moments=configs.opt_state_dtype(arch),
+                         acc=configs.acc_dtype(arch))
+        r = out[arch]
+        check(r["seal_ok"] and r["loss_rel"] <= 1e-4 and worst <= 2
+              and r["off_share"] <= 1e-3,
+              f"{arch} SMOKE step on the card differs from the CPU: {r}")
+        check(launches["ctr_cipher"] > 0 and launches["tree_mac"] > 0,
+              f"{arch} SMOKE step on the card launched {launches}")
     return out
 
 
@@ -1538,6 +1823,28 @@ def print_family(f: dict, card: str) -> None:
               f"({ly['bound_by']}); {card}", flush=True)
 
 
+def print_train_family(f: dict, card: str) -> None:
+    arch, n = f["arch"], f["tokens_per_step"]
+    for i, st in enumerate(f["steps"]):
+        print(f"train-families {arch}: step {i} loss {st['loss']:.4f}, grad "
+              f"norm {st['grad_norm']:.4f}, seal_ok {st['seal_ok']}, "
+              f"{st['wall_s']:.3f} s = {n / st['wall_s']:.0f} tok/s, "
+              f"launches ctr {st['ctr']} mac {st['mac']}", flush=True)
+    p = f["profile"]
+    print(f"train-families {arch}: {f['params']} params, sealed state "
+          f"{f['sealed_bytes']} bytes, peak memory "
+          f"{f['peak_bytes'] / 2**30:.2f} GiB, set-up {f['setup_s']:.1f} s, "
+          f"remat {f['remat']}, moments {f['moments']}; launches "
+          f"{json.dumps(f['launches'])}; reduced "
+          f"{json.dumps(f['reduced'])}; a flipped mu bit poisoned the state;"
+          f" {card}", flush=True)
+    print(f"profile: one {arch} train step {p['wall_ms']:.1f} ms wall = "
+          f"{n / p['wall_ms'] * 1e3:.0f} tok/s, {p['device_busy_ms']:.1f} ms "
+          f"busy, idle {p['device_idle_share']:.3f}, "
+          f"{p['kernel_launches']} kernel rows; top three "
+          f"{json.dumps(p['top'])}", flush=True)
+
+
 def _counted():
     from repro_torch.kernels.ctr_cipher import ops as ctr_ops
     from repro_torch.kernels.sealed_attention import ops as sa_ops
@@ -1867,12 +2174,11 @@ def main() -> int:
           f"{json.dumps(tr['reduced'])}; a flipped mu bit poisoned the "
           f"state", flush=True)
     print(f"profile: one train step {json.dumps(tr['profile'])}", flush=True)
-    for name, p in (("float32 operands (before)", tr["profile_f32_qk"]),
-                    ("bf16 on the tensor cores", tr["profile"])):
-        print(f"train: QK product {name}: step {p['wall_ms']:.1f} ms wall = "
-              f"{tr['tokens_per_step'] / p['wall_ms'] * 1e3:.0f} tok/s, "
-              f"{p['device_busy_ms']:.1f} ms busy, idle "
-              f"{p['device_idle_share']:.3f}", flush=True)
+    p = tr["profile"]
+    print(f"train: profiled step {p['wall_ms']:.1f} ms wall = "
+          f"{tr['tokens_per_step'] / p['wall_ms'] * 1e3:.0f} tok/s, "
+          f"{p['device_busy_ms']:.1f} ms busy, idle "
+          f"{p['device_idle_share']:.3f}", flush=True)
     ref = smoke_train_reference()
     (cpu_l, cpu_ev), (gpu_l, gpu_ev) = ref["cpu"], ref["cuda"]
     rel = max(abs(a - b) / abs(a) for a, b in zip(cpu_l, gpu_l))
@@ -1905,7 +2211,47 @@ def main() -> int:
           f" == cpu, {ref['cuda'].size} tokens, launches "
           f"{json.dumps(ref['cuda_launches'])}", flush=True)
 
-    # 11. report ----------------------------------------------------------
+    # 11. sealed training of every family: MoE and enc-dec at full width,
+    # each SMOKE config on the card against the CPU, the cross-pod hook ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_tf = time.perf_counter()
+    tfs = {}
+    for arch in TRAIN_FAMILY_ARCHS:
+        tfs[arch] = train_family_phase(arch)
+        print_train_family(tfs[arch], card)
+    smoke_tf = smoke_train_families()
+    for arch, r in smoke_tf.items():
+        print(f"train-families smoke {arch}: one sealed step on cuda == cpu"
+              f" (loss {r['loss_cuda']:.6f} vs {r['loss_cpu']:.6f}, rel "
+              f"{r['loss_rel']:.2g}; parameters at most "
+              f"{r['worst_over_lr']:.3g} lr apart, {r['off_share']:.2g} of "
+              f"the entries past 1e-3 of the move + 0.05 lr; moments "
+              f"{r['moments']}, accumulators {r['acc']}); launches "
+              f"{json.dumps(r['launches'])}", flush=True)
+    from repro_torch.launch import steps as steps_lib
+    xpod = crosspod_check(tfs[CROSSPOD_ARCH].pop("grads"),
+                          torch.tensor(steps_lib.CELL_KEY, dtype=torch.int32,
+                                       device="cuda"))
+    for mode in ("f32", "int8"):
+        x = xpod[mode]
+        print(f"crosspod: {CROSSPOD_ARCH}'s gradients of one step "
+              f"({xpod['leaves']} leaves, {xpod['payload_bytes']} f32 "
+              f"bytes), one-pod NCCL group, quantize "
+              f"{'on' if mode == 'int8' else 'off'}: "
+              + ("returned bit for bit" if mode == "f32" else
+                 f"within {x['worst_int8_steps']:.4f} half int8 steps")
+              + f"; hook {x['wall_ms']:.1f} ms wall, launches "
+              f"{json.dumps(x['launches'])}; one pod's seal through the CTR"
+              f" kernel {x['ctr_ms']:.4f} ms in CUDA graphs over "
+              f"{x['ctr_bytes']} bytes read and written, bound "
+              f"{x['ctr_bound_ms']:.4f} ms ({x['bound_by']}); {card}",
+              flush=True)
+    print(f"train-families: {len(tfs)} configurations, {len(smoke_tf)} SMOKE"
+          f" configs and the cross-pod hook in "
+          f"{time.perf_counter() - t_tf:.1f} s", flush=True)
+
+    # 12. report ----------------------------------------------------------
     sources = {"ctr_cipher": ("src/repro_torch/csrc/ctr_cipher.cu",
                               "src/repro/kernels/ctr_cipher/kernel.py:43"),
                "tree_mac": ("src/repro_torch/csrc/tree_mac.cu",
@@ -2008,6 +2354,11 @@ def main() -> int:
                "sealed_matmul": {**{k: 0 for k in launches},
                                  "sealed_matmul": mm["launches"]},
                "train": tr["launches"]}
+    for arch, f in tfs.items():
+        by_path[f"train {arch}"] = f["launches"]
+    by_path["train SMOKE configs"] = {
+        k: sum(r["launches"][k] for r in smoke_tf.values())
+        for k in launches}
     for arch, f in fams.items():
         by_path[f"{arch} sealed"] = f["sealed"]["launches"]
         if "fused" in f:
@@ -2026,6 +2377,15 @@ def main() -> int:
             **({"general_path_ms": f["step"]["general_ms"],
                 "general_path_bound_ms": f["step"]["general_bound_ms"]}
                if pre == "mac" else {})} for arch, f in fams.items()}
+    kernels[0]["crosspod"] = {
+        mode: {k: xpod[mode][k] for k in ("ctr_ms", "ctr_bound_ms",
+                                          "bound_by", "ctr_bytes")}
+        for mode in ("f32", "int8")}
+    for k in kernels[:2]:
+        k["train_families"] = {arch: {
+            "launches_per_step": f["steps"][0][
+                "ctr" if k["name"] == "ctr_cipher" else "mac"]}
+            for arch, f in tfs.items()}
     lay = fams["qwen3-4b"]["fused"]["layer"]
     kernels[2]["families"] = {"qwen3-4b fused": {
         "layer_ms": lay["ms"], "bound_ms": lay["bound_ms"],

@@ -9,3 +9,5 @@ CONFIG = ModelConfig(
 SMOKE = CONFIG.with_(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
                      head_dim=32, d_ff=256, vocab=512,
                      dtype="float32", param_dtype="float32", q_block=16)
+TRAIN_MICROBATCH = 16
+SKIP_SHAPES = {"long_500k": "pure full attention (quadratic prefill; 0.5M KV)"}

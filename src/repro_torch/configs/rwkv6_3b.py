@@ -11,3 +11,5 @@ CONFIG = ModelConfig(
 SMOKE = CONFIG.with_(n_layers=2, d_model=128, n_heads=2, n_kv_heads=2,
                      d_ff=448, vocab=512, rwkv=RWKVConfig(head_dim=64, decay_lora=8),
                      dtype="float32", param_dtype="float32", q_block=16)
+TRAIN_MICROBATCH = 16
+SKIP_SHAPES: dict = {}   # O(1) state => long_500k runs

@@ -15,3 +15,5 @@ SMOKE = CONFIG.with_(n_layers=4, d_model=128, n_heads=4, n_kv_heads=4,
                      ssm=SSMConfig(d_state=8, head_dim=16),
                      hybrid=HybridConfig(attn_every=2),
                      dtype="float32", param_dtype="float32", q_block=16)
+TRAIN_MICROBATCH = 16
+SKIP_SHAPES: dict = {}   # hybrid => long_500k runs

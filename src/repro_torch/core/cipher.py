@@ -28,6 +28,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import common
 from ..kernels.ctr_cipher import ops as ctr_ops
@@ -169,6 +170,12 @@ def _ctr(raw: torch.Tensor, key: torch.Tensor, nonce, rows=None):
     """XOR unsigned bits ``raw`` ([*shape], or [N, *shape] with a [N, 2]
     key) with the shaped keystream; ``rows`` overrides the counter rows
     (shape ``raw.shape[:-1]``)."""
+    if raw.element_size() == 1:
+        # byte e of a row is byte e % 4 of the row's word e // 4 (the words
+        # are little-endian): XOR the rows padded to whole words
+        e = raw.shape[-1]
+        wide = F.pad(raw, (0, (-e) % 4)).contiguous().view(torch.int32)
+        return _ctr(wide, key, nonce, rows).view(raw.dtype)[..., :e]
     keys, nonces, batched = _items(key, nonce)
     n = keys.shape[0]
     tkeys = derive_tensor_key(keys, nonces)

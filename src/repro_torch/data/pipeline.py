@@ -1,5 +1,5 @@
-"""Deterministic synthetic data pipeline (a copy of ``repro.data.pipeline``
-for token inputs; numpy only, so the port does not import the reference).
+"""Deterministic synthetic data pipeline (a copy of ``repro.data.pipeline``;
+numpy only, so the port does not import the reference).
 
 Step-indexed and stateless: ``batch_at(step)`` is a pure function of
 (seed, step), so restart-from-checkpoint replays the exact stream with no
@@ -32,7 +32,10 @@ class SyntheticLM:
     b: int = 131
     noise_every: int = 7
 
-    def batch_at(self, step: int) -> dict:
+    def batch_at(self, step: int, extra: dict | None = None) -> dict:
+        """tokens and labels [B, S]; ``extra`` maps a frontend input's name
+        (``patch_embeds``, ``frame_embeds``) to its per-sequence shape,
+        drawn N(0, 1) in float32 after the tokens."""
         rng = np.random.RandomState((self.seed * 1_000_003 + step) % (2 ** 31))
         B, S, V = self.batch, self.seq_len, self.vocab
         t0 = rng.randint(0, V, size=(B, 1))
@@ -43,11 +46,18 @@ class SyntheticLM:
                 nxt = (nxt + rng.randint(0, 3, size=(B, 1))) % V
             toks.append(nxt)
         seq = np.concatenate(toks, axis=1).astype(np.int32)   # [B, S+1]
-        return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        out = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        if extra:
+            for k, shape in extra.items():
+                out[k] = rng.standard_normal(size=(B, *shape)).astype(
+                    np.float32)
+        return out
 
-    def microbatches_at(self, step: int, n_micro: int) -> dict:
+    def microbatches_at(self, step: int, n_micro: int,
+                        extra: dict | None = None) -> dict:
         """Stacked microbatches [n_micro, B, ...] for grad accumulation."""
-        bs = [self.batch_at(step * n_micro + i) for i in range(n_micro)]
+        bs = [self.batch_at(step * n_micro + i, extra)
+              for i in range(n_micro)]
         return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
 
 

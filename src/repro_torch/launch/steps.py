@@ -1,0 +1,133 @@
+"""Step builders shared by the training launcher and chip_smoke.py (torch
+port of ``repro.launch.steps``, its single-device half): the cell of one
+(arch x shape x security) choice and the step callables of every family.
+
+Left out, because they need a device mesh: the sharding half of the
+reference's module (``state_logical_specs``, ``tree_shardings``, the
+``abstract_*`` states, the ``*_shardings`` and ``batch_shardings``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from .. import configs
+from ..core import sealed as sealed_lib
+from ..core.channel import resolve_device
+from ..core.policy import SecurityConfig
+from ..models import registry
+from ..models.config import SHAPES_BY_NAME, ShapeConfig
+from ..optim import AdamW
+from ..train import trainer as trainer_lib
+
+# the reference's cell key (uint32 words, kept as int32 with the same bits)
+CELL_KEY = (0x5EC0DE, 0xFACADE)
+
+
+@dataclasses.dataclass
+class Cell:
+    arch_id: str
+    shape: ShapeConfig
+    cfg: Any
+    model: Any
+    sec: SecurityConfig
+    key: torch.Tensor
+    opt: Optional[AdamW] = None
+
+    @property
+    def sealed(self) -> bool:
+        return self.sec.enabled
+
+
+def make_cell(arch_id: str, shape_name: str, *, smoke: bool = False,
+              security: str = "trusted", overrides: dict | None = None,
+              device="cuda") -> Cell:
+    """The config (remat "full" at full size), security, cell key on
+    ``device`` and AdamW with the config's moment dtype."""
+    cfg = configs.get_config(arch_id, smoke=smoke)
+    if not smoke:
+        cfg = cfg.with_(remat="full")
+    if overrides:
+        cfg = cfg.with_(**overrides)
+    if security == "off":
+        sec = SecurityConfig.off()
+    elif security == "ctr":
+        sec = SecurityConfig.ctr_only()
+    else:
+        sec = SecurityConfig()
+    key = torch.tensor(CELL_KEY, dtype=torch.int32,
+                       device=resolve_device(device))
+    opt = AdamW(lr=3e-4, state_dtype=configs.opt_state_dtype(arch_id))
+    return Cell(arch_id=arch_id, shape=SHAPES_BY_NAME[shape_name], cfg=cfg,
+                model=registry.get_model(cfg), sec=sec, key=key, opt=opt)
+
+
+def batch_extra(cfg, seq_len: int) -> dict:
+    """The frontend inputs a training batch carries, by name, with their
+    per-sequence shapes: the VLM's patch embeddings, the encoder-decoder's
+    frame embeddings (as many as the tokens)."""
+    if cfg.frontend == "patch":
+        return {"patch_embeds": (cfg.n_frontend_tokens, cfg.d_model)}
+    if cfg.frontend == "frame":
+        return {"frame_embeds": (seq_len, cfg.d_model)}
+    return {}
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
+
+def make_train_step_fn(cell: Cell, grad_hook=None, in_place: bool = False):
+    """The sealed train step, accumulating in the config's ``ACC_DTYPE``;
+    ``in_place`` reseals into the state's own ciphertext (see
+    ``train/trainer.py``)."""
+    acc = (configs.acc_dtype(cell.arch_id)
+           if cell.arch_id in configs.ARCH_IDS else "float32")
+    return trainer_lib.make_train_step(cell.model, cell.cfg, cell.opt,
+                                       cell.sec, cell.key,
+                                       grad_hook=grad_hook, acc_dtype=acc,
+                                       in_place=in_place)
+
+
+def make_prefill_fn(cell: Cell):
+    max_len = cell.shape.seq_len
+
+    def prefill(params, batch):
+        if cell.sealed:
+            params, ok = sealed_lib.unseal_tree(params, cell.key)
+            ctx = (cell.key, 1)
+        else:
+            ok, ctx = True, None
+        logits, cache = cell.model.prefill(params, cell.cfg, batch, max_len,
+                                           seal_ctx=ctx)
+        return torch.where(torch.as_tensor(ok, device=logits.device), logits,
+                           torch.nan), cache
+
+    return prefill
+
+
+def make_decode_fn(cell: Cell):
+    def decode(params, cache, tokens):
+        if cell.sealed:
+            params, ok = sealed_lib.unseal_tree(params, cell.key)
+            ctx = (cell.key, cache.get("nonce"))
+        else:
+            ok, ctx = True, None
+        logits, cache = cell.model.decode_step(params, cell.cfg, cache,
+                                               tokens, seal_ctx=ctx)
+        return torch.where(torch.as_tensor(ok, device=logits.device), logits,
+                           torch.nan), cache
+
+    return decode
+
+
+def stacked_batch_specs(cell: Cell, n_accum: int, microbatch: int = 0):
+    """Train inputs with the grad-accumulation leading dim:
+    {name: (shape, dtype)}."""
+    mb = microbatch or configs.train_microbatch(cell.arch_id)
+    base = configs.input_specs(cell.cfg, cell.shape, microbatch=mb)
+    assert cell.shape.global_batch % mb == 0
+    n = n_accum or cell.shape.global_batch // mb
+    return {k: ((n, *shape), dt) for k, (shape, dt) in base.items()}

@@ -1,20 +1,24 @@
 """Training launcher of the port — sealed training on one card.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --steps 20
 
-Runs on the card; ``--device cpu`` runs the same path on the CPU with every
-kernel's plain version.  The smoke config is the default; ``--full`` takes
-the published size and then reseals the state in place to fit the card;
-the in-place step consumes the state passed in, so the Supervisor then
-checkpoints the initial state before the first step (a restart always has
-a checkpoint to restore).
+Every architecture of ``configs.ARCH_IDS``, through ``steps.make_cell``,
+the family's ``init`` (``models/registry.py``) and
+``steps.make_train_step_fn`` (the config's moment and accumulation
+dtypes).  Runs on the card; ``--device cpu`` runs the same path on the
+CPU with every kernel's plain version.  The smoke config is the default;
+``--full`` takes the published size (every block recomputed) and then
+reseals the state in place to fit the card; the in-place step consumes
+the state passed in, so the Supervisor then checkpoints the initial state
+before the first step (a restart always has a checkpoint to restore).
 The state (params and Adam moments) is sealed under the channel key; each
 step unseals, trains ``--accum`` microbatches of ``--batch`` sequences of
-``--seq`` tokens, and reseals.  ``--fail-at N`` injects a node failure at
-step N: the Supervisor restores the last checkpoint from ``--ckpt-dir``
-and replays.  Dense family only; weights are random, from a seeded
-``torch.Generator``.
+``--seq`` tokens (with the VLM's patch embeddings or the
+encoder-decoder's ``--seq`` frame embeddings), and reseals.  ``--fail-at
+N`` injects a node failure at step N: the Supervisor restores the last
+checkpoint from ``--ckpt-dir`` and replays.  Weights are random, from a
+seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -29,17 +33,14 @@ from .. import configs
 from ..core.channel import SecureChannel, resolve_device
 from ..core.policy import SecurityConfig
 from ..data import SyntheticLM
-from ..models import transformer
-from ..optim import AdamW
-from ..train import make_train_step, seal_state
+from ..train import seal_state
 from ..train.fault import FailureInjector, StragglerPolicy, Supervisor
+from . import steps as steps_lib
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True,
-                    choices=[a for a in configs.ARCH_IDS
-                             if configs.get_config(a).family == "dense"])
+    ap.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--security", default="trusted",
                     choices=("trusted", "ctr", "off"))
@@ -58,7 +59,9 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    cell = steps_lib.make_cell(args.arch, "train_4k", smoke=args.smoke,
+                               security=args.security, device=device)
+    cfg, model = cell.cfg, cell.model
     in_place = not args.smoke
     if args.security == "off":
         channel = SecureChannel.insecure(device=device)
@@ -66,18 +69,19 @@ def main(argv=None) -> dict:
         channel = SecureChannel.establish(device=device)
     if args.security == "ctr":
         channel.config = SecurityConfig.ctr_only()
-    opt = AdamW(lr=3e-4)              # f32 moments, as in the reference
+    cell.sec = channel.config
+    cell.key = channel.jkey
 
     gen = torch.Generator(device=device).manual_seed(0)
-    params = transformer.init(gen, cfg, device)
-    state = seal_state(opt.init(params), channel.jkey, channel.config)
+    params = model.init(gen, cfg, device)
+    state = seal_state(cell.opt.init(params), channel.jkey, channel.config)
     del params
-    step = make_train_step(transformer, cfg, opt, channel.config,
-                           channel.jkey, in_place=in_place)
+    step = steps_lib.make_train_step_fn(cell, in_place=in_place)
+    extra = steps_lib.batch_extra(cfg, args.seq)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch)
 
     def batch_fn(i):
-        mb = data.microbatches_at(i, args.accum)
+        mb = data.microbatches_at(i, args.accum, extra)
         return {k: torch.as_tensor(v, device=device) for k, v in mb.items()}
 
     def stepper(s, b):

@@ -1,6 +1,6 @@
 """ModelConfig — the fields of the ported families (dense, vlm, moe, rwkv,
-hybrid, encdec) that serving and training read, and the training shape
-cell.
+hybrid, encdec) that serving and training read, and the input-shape
+cells.
 
 A subset of ``repro.models.config`` with the same field names and
 defaults; dtypes are names mapped to torch dtypes.
@@ -80,6 +80,9 @@ class ModelConfig:
     n_frontend_tokens: int = 256  # patches per image / context frames
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    remat: str = "full"           # none | full | dots: what a block keeps
+                                  # for the backward pass (models/
+                                  # transformer.py::_maybe_remat)
     q_block: int = 512            # blocked-attention query block
     scan_layers: bool = True      # the reference's layer scan (a Python
                                   # loop here either way)
@@ -113,10 +116,18 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     """One assigned input-shape cell."""
-    name: str                     # train_4k (the one the port trains)
+    name: str  # train_4k, prefill_32k, decode_32k, long_500k
     seq_len: int
     global_batch: int
-    microbatch: int               # sequences per gradient-accumulation step
+    kind: str                     # train | prefill | decode
+    microbatch: int = 0           # sequences per gradient-accumulation step
+                                  # (0 => no accumulation; train only)
 
 
-TRAIN_4K = ShapeConfig("train_4k", 4096, 256, microbatch=16)
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train", microbatch=16)
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}

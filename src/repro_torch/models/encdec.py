@@ -56,12 +56,9 @@ def init(generator: torch.Generator, cfg, device="cuda"):
     }
 
 
-def _layers(stacked) -> list[dict]:
-    return TF.layer_stack({"layers": stacked})
-
-
 def encode(params, cfg, frames):
-    """frames: [B, T_src, D] precomputed embeddings (frontend stub)."""
+    """frames: [B, T_src, D] precomputed embeddings (frontend stub); each
+    block under ``cfg.remat``."""
     x = frames.to(cfg.act_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
 
@@ -69,8 +66,10 @@ def encode(params, cfg, frames):
         return L.gqa_attention(q, k, v, causal=False,
                                q_block=cfg.q_block), None
 
-    for lp in _layers(params["enc_layers"]):
-        x, _ = TF._block(lp, cfg, x, positions, full)
+    f = TF._maybe_remat(
+        lambda xx, lp: TF._block(lp, cfg, xx, positions, full)[0], cfg)
+    for lp in TF.unbind_tree(params["enc_layers"]):
+        x = f(x, lp)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -101,9 +100,10 @@ def _cross_kv(lp, cfg, enc_out):
     return k, v
 
 
-def _decoder(params, cfg, enc_out, tokens):
-    """Causal decoder pass over ``tokens``.  Returns (x, (k, v, xk, xv))
-    stacked [n_dec, B, ...]."""
+def _decoder(params, cfg, enc_out, tokens, keep: bool = True):
+    """Causal decoder pass over ``tokens``, each block (its cross KV
+    included) under ``cfg.remat``.  Returns (x, (k, v, xk, xv)) stacked
+    [n_dec, B, ...], or (x, None) when ``keep`` is off (training)."""
     x = params["embed"][tokens].to(cfg.act_dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
@@ -111,19 +111,26 @@ def _decoder(params, cfg, enc_out, tokens):
         return L.gqa_attention(q, k, v, causal=True,
                                q_block=cfg.q_block), (k, v)
 
-    kept = []
-    for lp in _layers(params["dec_layers"]):
+    def block(xx, lp):
         enc_kv = _cross_kv(lp, cfg, enc_out)
-        x, (k, v) = _dec_block(lp, cfg, x, positions, enc_kv, causal)
-        kept.append((k, v, *enc_kv))
+        xx, (k, v) = _dec_block(lp, cfg, xx, positions, enc_kv, causal)
+        return xx, ((k, v, *enc_kv) if keep else None)
+
+    f = TF._maybe_remat(block, cfg)
+    kept = []
+    for lp in TF.unbind_tree(params["dec_layers"]):
+        x, kv = f(x, lp)
+        kept.append(kv)
+    if not keep:
+        return x, None
     return x, tuple(torch.stack(t) for t in zip(*kept))
 
 
 def loss(params, cfg, batch):
-    """Forward CE. batch: frame_embeds [B,T,D], tokens [B,S], labels [B,S]
+    """Next-token CE. batch: frame_embeds [B,T,D], tokens [B,S], labels [B,S]
     (-1 = masked)."""
     enc_out = encode(params, cfg, batch["frame_embeds"])
-    x, _ = _decoder(params, cfg, enc_out, batch["tokens"])
+    x, _ = _decoder(params, cfg, enc_out, batch["tokens"], keep=False)
     logits = TF.logits_of(params, cfg, x)
     labels = batch["labels"]
     return L.softmax_xent(logits, torch.clamp(labels, min=0),
@@ -212,7 +219,7 @@ def decode_step(params, cfg, cache, tokens, seal_ctx=None):
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
     key = seal_ctx[0] if sealed else None
     rows = TF._slot_rows(B, T, K, pos, dev) if sealed else None
-    for l, lp in enumerate(_layers(params["dec_layers"])):
+    for l, lp in enumerate(TF.unbind_tree(params["dec_layers"])):
         kc, vc, xkc, xvc = (cache[f + sfx][l] for f in _CACHE_FIELDS)
         if sealed:
             nk, nv, nxk, nxv = _nonces(cache["nonce"], l)

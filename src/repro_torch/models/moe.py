@@ -14,7 +14,10 @@ Two stack modes, as in the reference:
     MLP, then attention + MoE), so 48 layers are 24 units.
 
 Parameters are nested dicts with the reference's keys; unit leaves are
-stacked [units, ...] (the pair's attention and norms [units, 2, ...]).
+stacked [units, ...] (the pair's attention and norms [units, 2, ...]) and
+taken apart with ``unbind`` (``TF.unbind_tree``), so a unit's backward
+writes only its own slice of a stacked gradient.  In training each unit
+runs under ``cfg.remat``.
 Serving caches are [units, lpu, B, T, K, hd] (lpu: layers per unit); a
 sealed unit is sealed whole under nonces 2 sub and 2 sub + 1 of the
 unit's ``_layer_nonce``, and a decode slot's counter rows are
@@ -186,26 +189,22 @@ def _unit_init(generator, cfg, device, lead: tuple):
     }
 
 
-def _index(tree, i):
-    """Sub-tree ``i`` along the leading axis of every leaf."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def _unit_apply(lp, cfg, x, positions, attend):
     """Apply one unit.  ``attend(j, q, k, v)`` is layer j's attention.
     Returns (x, [kept of each layer])."""
     if cfg.moe.moe_every == 2:
-        lp0 = {"ln1": lp["ln1"][0], "attn": _index(lp["attn"], 0)}
-        lp1 = {"ln1": lp["ln1"][1], "attn": _index(lp["attn"], 1)}
+        ln1 = lp["ln1"].unbind(0)
+        attn = TF.unbind_tree(lp["attn"])
+        lp0 = {"ln1": ln1[0], "attn": attn[0]}
+        lp1 = {"ln1": ln1[1], "attn": attn[1]}
+        ln2 = lp["ln2"].unbind(0)
         x, kv0 = _attn_sub(lp0, cfg, x, positions,
                            lambda q, k, v: attend(0, q, k, v))
-        h = L.rms_norm(x, lp["ln2"][0], cfg.norm_eps)
+        h = L.rms_norm(x, ln2[0], cfg.norm_eps)
         x = x + L.swiglu(lp["mlp"], h)
         x, kv1 = _attn_sub(lp1, cfg, x, positions,
                            lambda q, k, v: attend(1, q, k, v))
-        h = L.rms_norm(x, lp["ln2"][1], cfg.norm_eps)
+        h = L.rms_norm(x, ln2[1], cfg.norm_eps)
         return x + _apply_moe(lp["moe"], cfg, h), [kv0, kv1]
     x, kv = _attn_sub(lp, cfg, x, positions,
                       lambda q, k, v: attend(0, q, k, v))
@@ -233,25 +232,25 @@ def init(generator: torch.Generator, cfg, device="cuda"):
 
 
 def _forward(params, cfg, x, positions):
-    """Causal forward through the units (prefill / loss, no cache read).
-    Returns (x, (k, v)) with k, v [units, lpu, B, S, K, hd]."""
+    """Causal forward through the units (prefill / loss, no cache read),
+    each unit under ``cfg.remat``.  Returns (x, (k, v)) with k, v
+    [units, lpu, B, S, K, hd]."""
     def causal(j, q, k, v):
         return L.gqa_attention(q, k, v, causal=True,
                                q_block=cfg.q_block), (k, v)
 
-    units, _ = _unit_layers(cfg)
+    f = TF._maybe_remat(
+        lambda xx, lp: _unit_apply(lp, cfg, xx, positions, causal), cfg)
     ks, vs = [], []
-    for u in range(units):
-        x, kept = _unit_apply(_index(params["layers"], u), cfg, x,
-                              positions, causal)
+    for lp in TF.layer_stack(params):
+        x, kept = f(x, lp)
         ks.append(torch.stack([k for k, _ in kept]))
         vs.append(torch.stack([v for _, v in kept]))
     return x, (torch.stack(ks), torch.stack(vs))
 
 
 def loss(params, cfg, batch):
-    """Next-token CE (forward only). batch: tokens [B,S], labels [B,S]
-    (-1 = masked)."""
+    """Next-token CE. batch: tokens [B,S], labels [B,S] (-1 = masked)."""
     x, n_front = TF._embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _forward(params, cfg, x, positions)
@@ -326,7 +325,7 @@ def decode_step(params, cfg, cache, tokens, seal_ctx=None):
     pos = int(cache["pos"])
     sealed = seal_ctx is not None
     kall = cache["k_ct"] if sealed else cache["k"]
-    units, lpu, _, T, K, _ = kall.shape
+    _, lpu, _, T, K, _ = kall.shape
     if pos >= T:
         raise ValueError(f"decode position {pos} is past the {T}-slot cache")
     dev = tokens.device
@@ -335,7 +334,7 @@ def decode_step(params, cfg, cache, tokens, seal_ctx=None):
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
     key = seal_ctx[0] if sealed else None
     rows = _slot_rows(lpu, B, T, K, pos, dev) if sealed else None
-    for u in range(units):
+    for u, lp in enumerate(TF.layer_stack(params)):
         if sealed:
             kc, vc = cache["k_ct"][u], cache["v_ct"][u]  # [lpu, B, T, K, hd]
             nk, nv = TF._kv_nonces(cache["nonce"], u)
@@ -357,8 +356,7 @@ def decode_step(params, cfg, cache, tokens, seal_ctx=None):
                                 t_valid=pos + 1)
             return a, None
 
-        x, _ = _unit_apply(_index(params["layers"], u), cfg, x, positions,
-                           attend)
+        x, _ = _unit_apply(lp, cfg, x, positions, attend)
         if sealed:
             # write back only the new slot of each of the unit's layers
             new_k = kcache[:, :, pos:pos + 1]

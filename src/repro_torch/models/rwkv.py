@@ -188,11 +188,12 @@ def init_state_sealed(cfg, batch: int, n_layers: int | None = None,
 
 
 def _forward(params, cfg, x, states):
-    """The layer loop; states: stacked [n_layers, ...] fields.  Returns
-    (x, new stacked states)."""
+    """The layer loop, each block under ``cfg.remat``; states: stacked
+    [n_layers, ...] fields.  Returns (x, new stacked states)."""
+    block = TF._maybe_remat(lambda xx, lp, st: _block(lp, cfg, xx, st), cfg)
     outs = {f: [] for f in _STATE_FIELDS}
     for l, lp in enumerate(TF.layer_stack(params)):
-        x, st = _block(lp, cfg, x, {f: states[f][l] for f in _STATE_FIELDS})
+        x, st = block(x, lp, {f: states[f][l] for f in _STATE_FIELDS})
         for f in _STATE_FIELDS:
             outs[f].append(st[f])
     return x, {f: torch.stack(v) for f, v in outs.items()}

@@ -167,37 +167,58 @@ def _shared_attn(sp, cfg, x, x0, positions, kv_cache=None, pos: int = 0):
     return h + L.swiglu(sp["mlp"], h2), new_kv
 
 
+def _group(sp, lps, cfg, x, x0, positions, kv=None, pos: int = 0,
+           states=None):
+    """One shared-attention invocation, then its group's Mamba-2 layers
+    ``lps``.  kv: the invocation's KV cache or None; states: each layer's
+    (ssm, conv) state or None (zeros).  Returns (x, (k, v), [(ssm, conv)
+    of each layer])."""
+    y, new_kv = _shared_attn(sp, cfg, x, x0, positions, kv_cache=kv,
+                             pos=pos)
+    x = x + y
+    new = []
+    for i, lp in enumerate(lps):
+        h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
+        st = (None, None) if states is None else states[i]
+        y, s_ssm, s_conv = m2_forward(lp["m2"], cfg, h, *st)
+        new.append((s_ssm, s_conv))
+        x = x + y
+    return x, new_kv, new
+
+
 def _stack(params, cfg, x, positions, states=None, pos: int = 0):
     """The hybrid stack: before each group of ``attn_every`` Mamba-2 layers
     (and the tail group) one shared-attention invocation.  With ``states``
     each layer's SSM and conv state and each invocation's KV cache are read
-    and returned; without, every state starts at zero and none is kept.
-    Returns (x, new states or None)."""
+    and returned; without, every state starts at zero, none is kept, and
+    each whole group runs under ``cfg.remat`` (the tail group does not, as
+    in the reference).  Returns (x, new states or None)."""
     ae = cfg.hybrid.attn_every
     x0 = x
     sp = params["shared_attn"]
+    layers = TF.layer_stack(params)
+    starts = range(0, len(layers), ae)
+    if states is None:
+        group = TF._maybe_remat(
+            lambda xx, lps: _group(sp, lps, cfg, xx, x0, positions)[0], cfg)
+        for l0 in starts:
+            lps = layers[l0:l0 + ae]
+            x = (group(x, lps) if len(lps) == ae
+                 else _group(sp, lps, cfg, x, x0, positions)[0])
+        return x, None
     new = {"ssm": [], "conv": [], "attn_k": [], "attn_v": []}
-    for l, lp in enumerate(TF.layer_stack(params)):
-        if l % ae == 0:
-            g = l // ae
-            kv = None if states is None else (states["attn_k"][g],
-                                              states["attn_v"][g])
-            y, (nk, nv) = _shared_attn(sp, cfg, x, x0, positions,
-                                       kv_cache=kv, pos=pos)
-            x = x + y
-            new["attn_k"].append(nk)
-            new["attn_v"].append(nv)
-        h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-        if states is None:
-            y, _, _ = m2_forward(lp["m2"], cfg, h)
-        else:
-            y, s_ssm, s_conv = m2_forward(lp["m2"], cfg, h, states["ssm"][l],
-                                          states["conv"][l])
+    for g, l0 in enumerate(starts):
+        lps = layers[l0:l0 + ae]
+        x, (nk, nv), per_layer = _group(
+            sp, lps, cfg, x, x0, positions,
+            kv=(states["attn_k"][g], states["attn_v"][g]), pos=pos,
+            states=[(states["ssm"][l], states["conv"][l])
+                    for l in range(l0, l0 + len(lps))])
+        new["attn_k"].append(nk)
+        new["attn_v"].append(nv)
+        for s_ssm, s_conv in per_layer:
             new["ssm"].append(s_ssm)
             new["conv"].append(s_conv)
-        x = x + y
-    if states is None:
-        return x, None
     new_states = {f: torch.stack(v) for f, v in new.items()}
     new_states["pos"] = pos + positions.shape[-1]
     return x, new_states

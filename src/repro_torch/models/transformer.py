@@ -9,9 +9,10 @@ on the device, ``params_from_numpy`` carries the reference's ``init`` tree
 across so both packages compute on the same weights.
 
 Training (token inputs): ``loss`` — embed, ``backbone`` with each block
-recomputed in the backward pass (when autograd records), final norm,
-logits and the masked cross-entropy.  Serving over a fixed-slot KV cache:
-``init_cache``, ``prefill`` and ``decode_step``, with the reference's three
+under ``cfg.remat`` (``_maybe_remat``, which every family applies where
+the reference does), final norm, logits and the masked cross-entropy.
+Serving over a fixed-slot KV cache: ``init_cache``, ``prefill`` and
+``decode_step``, with the reference's three
 decode branches — plain cache, sealed cache unsealed per layer, and sealed
 cache read by the sealed flash-decode kernel
 (``cfg.fused_sealed_attention``).  The paged engine (``serve/engine.py``)
@@ -22,6 +23,8 @@ cache are host ints; ``decode_step`` writes the new slot into the cache's
 tensors IN PLACE and returns the cache dict with ``pos`` advanced.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -83,19 +86,21 @@ def params_from_numpy(tree, device="cuda"):
     return _tensor_from_numpy(tree, device)
 
 
+def unbind_tree(tree) -> list:
+    """Every index of a stacked [n, ...] tree along its leading axis: one
+    ``torch.unbind`` per leaf.  (Selecting ``leaf[i]`` per index would make
+    each select's backward write a zero-filled gradient the size of the
+    whole stack.)"""
+    if isinstance(tree, dict):
+        subs = {k: unbind_tree(v) for k, v in tree.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def layer_stack(params) -> list[dict]:
-    """Every layer's parameters out of the stacked [n_layers, ...] tree:
-    one ``torch.unbind`` per stacked leaf.  (Selecting ``leaf[l]`` per
-    layer would make each select's backward write a zero-filled gradient
-    the size of the whole stack.)"""
-    views = {name: (sub.unbind(0) if isinstance(sub, torch.Tensor)
-                    else {k: v.unbind(0) for k, v in sub.items()})
-             for name, sub in params["layers"].items()}
-    n = len(next(iter(sub for sub in views.values()
-                      if isinstance(sub, tuple))))
-    return [{name: (sub[l] if isinstance(sub, tuple)
-                    else {k: v[l] for k, v in sub.items()})
-             for name, sub in views.items()} for l in range(n)]
+    """Every layer's parameters out of the stacked ``params["layers"]``."""
+    return unbind_tree(params["layers"])
 
 
 def _block(lp, cfg, x, positions, attend):
@@ -110,24 +115,50 @@ def _block(lp, cfg, x, positions, attend):
     return x + L.swiglu(lp["mlp"], h2), kept
 
 
-def _remat(fn):
-    """Keep only each block's input for the backward pass and run the block
-    again there (the reference's ``remat="full"``, ``jax.checkpoint``)."""
-    return lambda *args: torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False)
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """remat "dots": keep the outputs of products without batch dims (the
+    reference's ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def backbone(params, cfg, x, positions, remat: bool = False):
+def _maybe_remat(fn, cfg):
+    """``fn`` under the config's ``remat`` when autograd records: "none"
+    keeps every activation, "full" keeps only the inputs and runs ``fn``
+    again in the backward pass (``jax.checkpoint``), "dots" keeps the
+    matmul outputs as well (as ``_save_matmuls`` says)."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, not "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _save_matmuls)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False, **kw)
+
+    return run
+
+
+def backbone(params, cfg, x, positions):
     """Causal forward through the layer stack (training / prefill, no cache
-    read); ``remat``: recompute each block in the backward pass.  Returns
-    (x, (k, v)) with k, v stacked [n_layers, B, S, K, hd]."""
+    read), each block under ``cfg.remat``.  Returns (x, (k, v)) with k, v
+    stacked [n_layers, B, S, K, hd]."""
     def causal(q, k, v):
         return L.gqa_attention(q, k, v, causal=True,
                                q_block=cfg.q_block), (k, v)
 
-    f = lambda xx, lp: _block(lp, cfg, xx, positions, causal)  # noqa: E731
-    if remat:
-        f = _remat(f)
+    f = _maybe_remat(lambda xx, lp: _block(lp, cfg, xx, positions, causal),
+                     cfg)
     ks, vs = [], []
     for lp in layer_stack(params):
         x, (k, v) = f(x, lp)
@@ -156,8 +187,7 @@ def loss(params, cfg, batch):
     and ``patch_embeds`` [B, n_front, D] for the VLM."""
     x, n_front = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = backbone(params, cfg, x, positions,
-                    remat=torch.is_grad_enabled())
+    x, _ = backbone(params, cfg, x, positions)
     logits = logits_of(params, cfg, x[:, n_front:])
     labels = batch["labels"]
     return L.softmax_xent(logits, torch.clamp(labels, min=0),

@@ -25,7 +25,9 @@ under the next nonce's keystream, so unsealing it raises
 ``Supervisor.save_at_start``).  The default writes new tensors and leaves
 the state passed in intact.
 
-The batch may itself arrive sealed (Rule 1 ingestion).
+The batch may itself arrive sealed (Rule 1 ingestion); gradient cross-pod
+reduction goes through ``grad_hook`` (``parallel.collectives``), which seals
+the payloads crossing the pod trust boundary.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from ..core.channel import poison_unless
 from ..core.policy import Protection, SecurityConfig
 from ..kernels.ctr_cipher import ops as ctr_ops
 from ..kernels import common
+from ..models.config import DTYPES
 from ..optim import AdamW, TrainState
 
 # elements per row slice of the leaf-by-leaf update: 64 MiB of f32, so the
@@ -182,19 +185,25 @@ def _reseal_update(opt: AdamW, key, ok, lr, c1, c2, scale, p, g,
 
 
 def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
-                    in_place: bool = False):
+                    grad_hook: Callable | None = None,
+                    acc_dtype: str = "float32", in_place: bool = False):
     """Build the train step.
 
     model: family module (``loss(params, cfg, batch)``); opt: AdamW;
     sec: SecurityConfig; key: int32 [2] cipher key (required if
-    sec.enabled); in_place: reseal into the old ciphertext (see the module
-    docstring).  The step takes (state, batch_stack) with batch_stack a
-    dict of [n_accum, B, S] tensors, or a list of microbatches that may be
-    sealed, and returns (new state, metrics).
+    sec.enabled); grad_hook: optional fn(grads, step) -> grads (the sealed
+    cross-pod reduction, ``parallel.collectives.make_crosspod_grad_hook``),
+    applied to the float32 means of the accumulated gradients before they
+    take the parameter dtype; acc_dtype: the dtype each microbatch's
+    gradient is summed in; in_place: reseal into the old ciphertext (see
+    the module docstring).  The step takes (state, batch_stack) with
+    batch_stack a dict of [n_accum, B, S] tensors, or a list of
+    microbatches that may be sealed, and returns (new state, metrics).
     """
     sealed_mode = sec.enabled
     if sealed_mode:
         assert key is not None
+    acc_dt = DTYPES[acc_dtype]
 
     def loss_fn(params, mb):
         if sealed_mode and sealed_lib.is_sealed(next(iter(mb.values()))):
@@ -211,21 +220,29 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
         leaves = [p.detach().requires_grad_(True)
                   for p in sealed_lib.tree_leaves(params)]
         ptree = sealed_lib.tree_unflatten(params, leaves)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                for p in leaves]
         l_sum = torch.zeros((), dtype=torch.float32, device=ok.device)
         mbs = _microbatches(batch_stack)
         for mb in mbs:
             l = loss_fn(ptree, mb)
             for a, g in zip(acc, torch.autograd.grad(l, leaves)):
-                a.add_(g.float())
+                a.add_(g.to(acc_dt))
             l_sum = l_sum + l.detach()
-        loss = l_sum / len(mbs)
-        # mean over microbatches in f32, then the parameter dtype
+        n = len(mbs)
+        loss = l_sum / n
+        # the mean over microbatches in f32, the hook, then the parameter
+        # dtype (the reference's order); leaf by leaf without a hook
         grads = []
         for i, p in enumerate(leaves):
-            grads.append((acc[i] / len(mbs)).to(p.dtype))
-            acc[i] = None
+            a, acc[i] = acc[i], None
+            g = a.div_(n) if a.dtype == torch.float32 else a.float() / n
+            grads.append(g if grad_hook is not None else g.to(p.dtype))
+        if grad_hook is not None:
+            grads = sealed_lib.tree_leaves(grad_hook(
+                sealed_lib.tree_unflatten(params, grads), state.step))
+            for i, p in enumerate(leaves):
+                grads[i] = grads[i].to(p.dtype)
         leaves = [p.detach() for p in leaves]
         del ptree, params
 

@@ -176,3 +176,68 @@ def test_families_phase_serves_moe_and_encdec_with_moonshot_cut_to_fit():
 
     assert 29.5e9 < weight_bytes(24) < 29.7e9
     assert 2 * weight_bytes(24) < 80e9 < 2 * weight_bytes(48)
+
+
+def _train_params(cfg) -> int:
+    """Parameters of a moe or encdec config, counted from its shapes."""
+    D, V = cfg.d_model, cfg.vocab
+    attn = 2 * D * cfg.n_heads * cfg.hd + 2 * D * cfg.n_kv_heads * cfg.hd
+    if cfg.family == "moe":
+        m = cfg.moe
+        layer = (3 * m.n_experts * D * cfg.d_ff + 3 * D * m.d_ff_shared
+                 + D * m.n_experts + attn + 2 * D)
+        return cfg.n_layers * layer + 2 * V * D + D
+    mlp = 3 * D * cfg.d_ff
+    enc = attn + mlp + 2 * D
+    dec = 2 * attn + mlp + 3 * D
+    return (cfg.encdec.n_enc_layers * enc + cfg.encdec.n_dec_layers * dec
+            + 2 * V * D + 2 * D)
+
+
+def test_train_families_phase_fits_moonshot_at_four_layers():
+    """The train-families phase trains moonshot-v1-16b-a3b at full width
+    cut to 4 of its 48 layers and seamless-m4t-large-v2 at full size, one
+    4096-token sequence a step: 10 bytes of sealed state a parameter (bf16
+    weights, f32 mu and nu) are 30.2 GB and 20.3 GB; moonshot at 48 layers
+    would be 160 GB, twice the card."""
+    from repro_torch import configs
+
+    assert chip_smoke.TRAIN_FAMILY_ARCHS == ("moonshot-v1-16b-a3b",
+                                             "seamless-m4t-large-v2")
+    assert chip_smoke.TRAIN_FAMILY_CUTS == {
+        "moonshot-v1-16b-a3b": {"n_layers": 4}}
+    assert chip_smoke.CROSSPOD_ARCH in chip_smoke.TRAIN_FAMILY_ARCHS
+    moon = configs.get_config("moonshot-v1-16b-a3b")
+    n4 = _train_params(moon.with_(n_layers=4))
+    assert 3.02e9 < n4 < 3.03e9 and 30.2e9 < 10 * n4 < 30.3e9
+    assert 10 * _train_params(moon) > 2 * 80e9
+    n_sm = _train_params(configs.get_config("seamless-m4t-large-v2"))
+    assert 2.03e9 < n_sm < 2.04e9 and 20.3e9 < 10 * n_sm < 20.4e9
+    for arch in chip_smoke.TRAIN_FAMILY_ARCHS:
+        assert configs.opt_state_dtype(arch) == "float32"
+
+
+@pytest.mark.parametrize("arch, want", [
+    ("moonshot-v1-16b-a3b", {"n_layers": [48, 4], "global_batch": [256, 1],
+                             "microbatch": [16, 1]}),
+    ("seamless-m4t-large-v2", {"global_batch": [256, 1],
+                               "microbatch": [16, 1]})])
+def test_train_family_reduced_lists_every_cut(arch, want):
+    """The phase's ``reduced`` dict: [published, run] of the depth and of
+    train_4k's global batch and microbatch (one sequence a step)."""
+    assert chip_smoke.train_family_reduced(arch) == want
+
+
+@pytest.mark.parametrize("shape, dtype, nbytes, blocks", [
+    ((4, 300), torch.float32, 2 * 4 * 300 * 4, 4 * 150),
+    ((3, 5), torch.int8, 2 * 15, 3 * 1), ((9,), torch.int8, 18, 2),
+    ((2, 3, 7), torch.float32, 2 * 42 * 4, 6 * 4)])
+def test_crosspod_payload_bound_counts_rows_of_words(shape, dtype, nbytes,
+                                                     blocks):
+    """One CTR pass over a payload reads and writes each byte once and
+    takes one Threefry block per two words of a row (a row of bytes padded
+    to whole words)."""
+    b = chip_smoke.ctr_payload_bound(shape, dtype)
+    assert b["bytes"] == nbytes
+    assert b["alu_ops"] == blocks * chip_smoke.CTR_ALU_OPS_PER_BLOCK
+    assert b["bound_by"] == "bytes"

@@ -481,3 +481,21 @@ def test_qk_logits_of_bf16_operands_match_the_exact_product(gen, T):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
     assert ((full.double() - exact).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 5), (1024, 1408), (2, 3, 9)])
+def test_byte_payloads_seal_on_the_card_as_on_the_cpu(gen, shape):
+    """int8 payloads (the cross-pod hook's quantized gradients) ride in
+    the 32-bit lattice, rows padded to whole words: the CTR kernel's
+    ciphertext equals the plain version's, and unseals to the payload."""
+    key = bits(gen, (2,), torch.int32)
+    x = bits(gen, shape, torch.int32).to(torch.int8)
+    before = ctr_ops.ctr_xor.launches
+    ct = cipher.seal_bits(x, key, 0x80000001)
+    torch.cuda.synchronize()
+    assert ctr_ops.ctr_xor.launches == before + 1
+    assert ct.dtype == torch.uint8 and ct.shape == x.shape
+    assert torch.equal(ct.cpu(), cipher.seal_bits(x.cpu(), key.cpu(),
+                                                  0x80000001))
+    assert torch.equal(cipher.unseal_bits(ct, key, 0x80000001, torch.int8),
+                       x)

@@ -25,7 +25,9 @@ SLICE_MODULES = (
     "repro_torch.models.moe", "repro_torch.models.encdec",
     "repro_torch.configs.moonshot_v1_16b_a3b",
     "repro_torch.configs.llama4_maverick_400b_a17b",
-    "repro_torch.configs.seamless_m4t_large_v2")
+    "repro_torch.configs.seamless_m4t_large_v2",
+    "repro_torch.launch.steps", "repro_torch.parallel.compress",
+    "repro_torch.parallel.collectives", "repro_torch.configs.llama3_405b")
 
 PROBE = """
 import pkgutil, sys

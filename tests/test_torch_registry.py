@@ -41,7 +41,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 ARCHS = ("rwkv6-3b", "zamba2-1.2b", "internvl2-2b", "qwen3-4b",
          "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
-         "seamless-m4t-large-v2")
+         "seamless-m4t-large-v2", "llama3-405b")
 FAMILY_ARCH = {"dense": "qwen3-4b", "vlm": "internvl2-2b",
                "rwkv": "rwkv6-3b", "hybrid": "zamba2-1.2b",
                "moe": "moonshot-v1-16b-a3b",
@@ -72,6 +72,7 @@ def max_len(cfg) -> int:
 
 
 def test_archs_and_families():
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert set(tconfigs.ARCH_IDS) == set(ARCHS) | {"granite-3-2b",
                                                    "minitron-8b"}
     for arch in tconfigs.ARCH_IDS:
@@ -82,11 +83,26 @@ def test_archs_and_families():
                       "n_kv_heads", "d_ff", "vocab", "hd", "qk_norm",
                       "rope_theta", "frontend", "n_frontend_tokens",
                       "dtype", "param_dtype", "q_block", "sub_quadratic",
-                      "moe_dispatch_shards", "moe_ep"):
+                      "moe_dispatch_shards", "moe_ep", "remat"):
                 assert getattr(got, f) == getattr(want, f), (arch, f)
             for sub in ("ssm", "hybrid", "rwkv", "moe", "encdec"):
                 assert (vars(getattr(got, sub))
                         == vars(getattr(want, sub))), (arch, sub)
+        for name in ("train_microbatch", "opt_state_dtype", "skip_reason"):
+            args = (arch, "long_500k") if name == "skip_reason" else (arch,)
+            assert (getattr(tconfigs, name)(*args)
+                    == getattr(jconfigs, name)(*args)), (arch, name)
+        assert tconfigs.acc_dtype(arch) == getattr(
+            jconfigs.arch_module(arch), "ACC_DTYPE", "float32")
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            want = jconfigs.input_specs(jconfigs.get_config(arch),
+                                        jconfigs.SHAPES_BY_NAME[shape], 16)
+            got = tconfigs.input_specs(tconfigs.get_config(arch),
+                                       tconfigs.SHAPES_BY_NAME[shape], 16)
+            assert {k: (tuple(v.shape), str(v.dtype))
+                    for k, v in want.items()} == {
+                k: (s, str(d).replace("torch.", ""))
+                for k, (s, d) in got.items()}, (arch, shape)
     assert tregistry.get_model(tconfigs.get_config("rwkv6-3b")) is rwkv
     assert tregistry.get_model(tconfigs.get_config("zamba2-1.2b")) is ssm
     assert tregistry.get_model(
