@@ -90,7 +90,23 @@ From the root of a checkout:  python3 chip_smoke.py
    moonshot's gradients of one step: quantize off returns them bit for
    bit, quantize on within half an int8 step, and one pod's seal of the
    payload through the CTR kernel timed in CUDA graphs against its bound;
-11. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+11. runs the parallel phase in two processes that share the card over
+   gloo (``parallel_phase``): first which gloo operations take tensors on
+   the card (two throwaway processes), one pipeline hop's seal through the
+   CTR kernel in a CUDA graph against its bound, then in both processes
+   moonshot-v1-16b-a3b at full width (4 of 48 layers, one 2048-token
+   sequence) through the global dispatch and through ``moe_ep`` on a
+   (data 1, model 2) mesh, each rank holding 32 experts: the loss and
+   every gradient within the stated limits, and a control that drops
+   x's model-group gradient sum outside them; granite-3-2b at full size
+   as a two-stage sealed pipeline of 4 microbatches of 1 x 1024 tokens
+   against the unpipelined mean: the loss and gradients within the
+   limits, CTR launched in the step, a control that unseals the backward
+   hop in the forward domain outside them; and granite's sealed parameters
+   saved by ``checkpoint.save`` here and restored onto
+   ``make_smoke_mesh(2)`` by ``elastic_restore``: every local ct and tags
+   block equal to the slice of the same leaves sealed again, bit for bit;
+12. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Each path's kernel launch counts are zeroed just before it runs and read
@@ -184,6 +200,24 @@ CROSSPOD_ARCH = "moonshot-v1-16b-a3b"
 SLAB_BYTES = 1 << 28   # rows of a leaf each plain-version call takes
 # granite's MLP products for one such microbatch: (name, M, K, N)
 MLP_PRODUCTS = (("w_gate", 8192, 2048, 8192), ("w_down", 8192, 8192, 2048))
+# the parallel phase: two processes on the one card over gloo.  EP:
+# moonshot at full width cut to 4 of 48 layers (as the train-families
+# phase), one sequence of 2048 tokens (train_4k's 4096 halved: both
+# processes hold the global dispatch's run at once), each model rank
+# holding 32 of the 64 experts.  Pipeline: granite at full width and depth,
+# 2 stages of 20 layers, 4 microbatches of 1 x 1024 tokens, sealed hops.
+PAR_EP_ARCH, PAR_EP_CUTS, PAR_EP_SEQ = ("moonshot-v1-16b-a3b",
+                                       {"n_layers": 4}, 2048)
+PAR_PP_ARCH, PAR_PP_STAGES, PAR_PP_MICRO, PAR_PP_SEQ = "granite-3-2b", 2, 4, 1024
+# limits set before the first run (bf16 at full width): the loss within
+# this share of itself, each gradient leaf within this share of its
+# largest entry; the controls must exceed the gradient limit
+PAR_EP_LOSS_RTOL, PAR_EP_GRAD_RTOL = 1e-3, 2e-2
+PAR_PP_LOSS_RTOL, PAR_PP_GRAD_RTOL = 1e-4, 1e-2
+PAR_KEY_BYTES = b"chip-smoke-elastic-restore"
+PAR_TIMEOUT_S = 600
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                  "reduce_scatter_tensor", "send_recv")
 
 
 def card_line() -> str:
@@ -419,7 +453,7 @@ def kernel_checks(sealed, provider_key):
     mac_case("tag_root combine [4 x 128 words, cw 128]",
              bits((SLOTS, 1, CHUNK_WORDS), torch.int32), skeys, step_share=2)
     # every weight leaf, as unsealed inside each step
-    for path, leaf in zip(_leaf_paths(sealed), sealed_lib.tree_leaves(sealed)):
+    for path, leaf in _tree_paths(sealed).items():
         e = leaf.ct.shape[-1]
         x = leaf.ct.reshape(1, -1, e)
         tkey = cipher.derive_tensor_key(provider_key, leaf.nonce)[None]
@@ -434,11 +468,12 @@ def kernel_checks(sealed, provider_key):
     return results
 
 
-def _leaf_paths(tree, prefix=""):
+def _tree_paths(tree, prefix=""):
+    """{path: leaf} of a nested dict."""
     if isinstance(tree, dict):
-        return [p for k in sorted(tree)
-                for p in _leaf_paths(tree[k], f"{prefix}{k}.")]
-    return [prefix[:-1]]
+        return {p: v for k in sorted(tree)
+                for p, v in _tree_paths(tree[k], f"{prefix}{k}.").items()}
+    return {prefix[:-1]: tree}
 
 
 def serve(cfg, sealed, provider, tenants, profiler):
@@ -1469,7 +1504,7 @@ def leaf_cases(sealed, key):
     from repro_torch.kernels.tree_mac import ops as mac_ops, ref as mac_ref
 
     cases = {}
-    for path, leaf in zip(_leaf_paths(sealed), sealed_lib.tree_leaves(sealed)):
+    for path, leaf in _tree_paths(sealed).items():
         e, isz = leaf.ct.shape[-1], leaf.ct.element_size()
         row_w = -(-e * isz // 4)
         cw = row_w // mac.chunk_count(row_w, leaf.spec.chunk_words)
@@ -1845,6 +1880,83 @@ def print_train_family(f: dict, card: str) -> None:
           f"{json.dumps(p['top'])}", flush=True)
 
 
+def parallel_reduced() -> dict:
+    """The parallel phase's cuts: {part: {what: [published, run]}}."""
+    from repro_torch import configs
+    from repro_torch.models.config import TRAIN_4K
+
+    moon = configs.get_config(PAR_EP_ARCH)
+    return {"ep": {"n_layers": [moon.n_layers, PAR_EP_CUTS["n_layers"]],
+                   "seq_len": [TRAIN_4K.seq_len, PAR_EP_SEQ],
+                   "global_batch": [TRAIN_4K.global_batch, 1]},
+            "pipeline": {"seq_len": [TRAIN_4K.seq_len, PAR_PP_SEQ],
+                         "global_batch": [TRAIN_4K.global_batch,
+                                          PAR_PP_MICRO],
+                         "microbatch": [TRAIN_4K.microbatch, 1]}}
+
+
+def print_parallel(par: dict, card: str) -> None:
+    print(f"parallel: gloo operations on tensors on the card "
+          f"{json.dumps(par['probe'])}; reduced from train_4k "
+          f"{json.dumps(parallel_reduced())}; {card}", flush=True)
+    for r in par["ranks"]:
+        ep = r["ep"]
+        print(f"parallel ep rank {r['rank']}: {PAR_EP_ARCH} at full width, "
+              f"{PAR_EP_CUTS['n_layers']} layers, one sequence of "
+              f"{PAR_EP_SEQ} tokens, mesh (data 1, model 2), "
+              f"{ep['experts_held']} experts held; loss {ep['loss_ep']:.6f} "
+              f"against the global dispatch's {ep['loss_global']:.6f} (rel "
+              f"{ep['loss_rel']:.3g}, limit {PAR_EP_LOSS_RTOL}; bit for bit "
+              f"{ep['loss_bits_equal']}); gradients within "
+              f"{ep['grad_rel_max']:.3g} of each leaf's largest entry (limit "
+              f"{PAR_EP_GRAD_RTOL}; worst {ep['grad_worst_leaf']}; "
+              f"{ep['grad_leaves_exact']} of {ep['grad_leaves']} leaves bit "
+              f"for bit); control without x's model-group gradient sum "
+              f"{ep['control_grad_rel_max']:.3g}; forward and backward "
+              f"{ep['wall_s_ep']:.3f} s (global {ep['wall_s_global']:.3f} "
+              f"s); peak of the forward and backward "
+              f"{ep['peak_bytes_ep'] / 2**30:.2f} GiB over "
+              f"{ep['held_bytes_ep'] / 2**30:.2f} held before it (global "
+              f"{ep['peak_bytes_global'] / 2**30:.2f} over "
+              f"{ep['held_bytes_global'] / 2**30:.2f}); {card}",
+              flush=True)
+    hop, S, M = par["hop"], PAR_PP_STAGES, PAR_PP_MICRO
+    for r in par["ranks"]:
+        pp = r["pipeline"]
+        print(f"parallel pipeline stage {pp['stage']}: {PAR_PP_ARCH}, {S} "
+              f"stages, {M} microbatches of 1 x {PAR_PP_SEQ} tokens, sealed "
+              f"hops; loss {pp['loss']:.6f} against the unpipelined "
+              f"{pp['loss_unpipelined']:.6f} (rel {pp['loss_rel']:.3g}, "
+              f"limit {PAR_PP_LOSS_RTOL}; bit for bit "
+              f"{pp['loss_bits_equal']}); gradients within "
+              f"{pp['grad_rel_max']:.3g} of each leaf's largest entry (limit "
+              f"{PAR_PP_GRAD_RTOL}; worst {pp['grad_worst_leaf']}; "
+              f"{pp['grad_leaves_exact']} of {pp['grad_leaves']} leaves bit "
+              f"for bit); control unsealing the backward hop in domain 0 "
+              f"{pp['control_grad_rel_max']:.3g}; step {pp['wall_s']:.3f} s "
+              f"wall (unpipelined {pp['wall_s_unpipelined']:.3f} s); "
+              f"launches {json.dumps(pp['launches'])}; peak "
+              f"{pp['peak_bytes'] / 2**30:.2f} GiB; {card}", flush=True)
+    print(f"parallel pipeline: {hop['bytes_per_tick']} bytes a hop a tick; "
+          f"one hop's seal through the CTR kernel {hop['ms']:.4f} ms in a "
+          f"CUDA graph against a {hop['bound_ms']:.4f} ms bound "
+          f"({hop['bound_by']}), plain version {hop['plain_ms']:.3f} ms; "
+          f"fill-drain bubble (S-1)/(M+S-1) = "
+          f"{(S - 1) / (M + S - 1):.3f}; {card}", flush=True)
+    for r in par["ranks"]:
+        rs = r["restore"]
+        print(f"parallel restore rank {r['rank']}: {PAR_PP_ARCH}'s sealed "
+              f"parameters ({par['ckpt_bytes']} bytes of ciphertext and tags,"
+              f" saved in {par['save_s']:.2f} s) onto make_smoke_mesh(2) by "
+              f"params_shardings in {rs['wall_s']:.2f} s; {rs['leaves']} "
+              f"leaves, {rs['blocks_sharded']} ct/tags blocks sharded, every "
+              f"block equal bit for bit {rs['equal']}; {rs['bytes_held']} "
+              f"bytes held; {card}", flush=True)
+    print(f"parallel: phase {par['seconds']:.1f} s (mesh set-up "
+          f"{max(r['mesh_s'] for r in par['ranks']):.1f} s a rank)",
+          flush=True)
+
+
 def _counted():
     from repro_torch.kernels.ctr_cipher import ops as ctr_ops
     from repro_torch.kernels.sealed_attention import ops as sa_ops
@@ -1934,6 +2046,480 @@ def moe_smoke_reference(arch: str = "llama4-maverick-400b-a17b"):
         torch.cuda.synchronize()
         outs[dev + "_launches"] = read_launches()
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the parallel phase: two processes share the one card over gloo (NCCL
+# refuses two ranks on one device)
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _init_gloo(rank: int, port: int, timeout_s: float) -> None:
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def _probe_op(op: str, rank: int) -> bool:
+    """One collective on tensors on the card; True if the result is
+    right."""
+    import torch.distributed as dist
+    dev, peer = torch.device("cuda", 0), 1 - rank
+    t = torch.full((4,), float(rank + 1), device=dev)
+    if op == "all_reduce":
+        dist.all_reduce(t)
+        out, want = t, [3.0] * 4
+    elif op == "broadcast":
+        dist.broadcast(t, 0)
+        out, want = t, [1.0] * 4
+    elif op == "all_gather_into_tensor":
+        out = torch.empty(8, device=dev)
+        dist.all_gather_into_tensor(out, t)
+        want = [1.0] * 4 + [2.0] * 4
+    elif op == "reduce_scatter_tensor":
+        out = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(out, t)
+        want = [3.0] * 2
+    else:                                     # send_recv
+        out = torch.empty(4, device=dev)
+        for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, t, peer),
+                                         dist.P2POp(dist.irecv, out, peer)]):
+            w.wait()
+        want = [float(peer + 1)] * 4
+    torch.cuda.synchronize()
+    return out.tolist() == want
+
+
+def _probe_rank(rank: int, port: int, out: str) -> None:
+    """Each gloo operation of ``GLOO_PROBE_OPS`` on tensors on the card, in
+    turn; the verdicts go to ``out`` as they come ("crashed" stands until
+    the operation returns)."""
+    import torch.distributed as dist
+    _init_gloo(rank, port, 20)
+    res = {}
+    for op in GLOO_PROBE_OPS:
+        res[op] = "crashed"
+        Path(f"{out}.{rank}").write_text(json.dumps(res))
+        try:
+            res[op] = "ok" if _probe_op(op, rank) else "wrong result"
+        except (RuntimeError, ValueError) as e:
+            res[op] = f"refused: {type(e).__name__}: " \
+                      f"{(str(e).splitlines() or [''])[0][:160]}"
+        Path(f"{out}.{rank}").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def gloo_cuda_probe() -> dict:
+    """Which gloo operations take tensors on the card (torch's gloo backend
+    runs some on CUDA tensors and not others), from two throwaway
+    processes that may crash: {op: "ok" | "refused: ..." | "crashed" |
+    "not reached"}."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_probe_") as tmp:
+        out = f"{tmp}/probe"
+        ctx = mp.start_processes(_probe_rank, args=(_free_port(), out),
+                                 nprocs=2, join=False, start_method="spawn")
+        t_end = time.monotonic() + 180
+        try:
+            while not ctx.join(timeout=2) and time.monotonic() < t_end:
+                pass
+        except ProcessException:
+            pass                              # recorded as "crashed"
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+        res = [json.loads(Path(f"{out}.{r}").read_text())
+               if Path(f"{out}.{r}").exists() else {} for r in range(2)]
+    return {op: (res[0].get(op, "not reached")
+                 if res[0].get(op) == res[1].get(op)
+                 else f"rank 0: {res[0].get(op)}; rank 1: {res[1].get(op)}")
+            for op in GLOO_PROBE_OPS}
+
+
+def _fwd_bwd(params, loss_fn) -> tuple[float, float]:
+    """(loss, wall s) of one forward and backward of ``loss_fn(params)``:
+    the gradients land in the leaves' ``.grad``."""
+    for leaf in _tree_paths(params).values():
+        leaf.grad = None
+        leaf.requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn(params)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), time.perf_counter() - t0
+
+
+def _rel_errs(grads: dict, ref: dict) -> dict:
+    """Per leaf: max |g - ref| over max |ref| (inf where g is not
+    finite)."""
+    out = {}
+    for path, r in ref.items():
+        g = grads[path].float()
+        r = r.to(g.device).float()
+        if not bool(torch.isfinite(g).all()):
+            out[path] = float("inf")
+            continue
+        scale = float(r.abs().max()) or 1.0
+        out[path] = float((g - r).abs().max()) / scale
+    return out
+
+
+def _ep_rank(mesh) -> dict:
+    """moonshot at full width, PAR_EP_CUTS: the global dispatch first (its
+    loss and this rank's gradients kept on the host, its memory freed),
+    then moe_ep with this model rank's 32 experts, then the control that
+    drops the model-group sum of x's gradient."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.models import moe_ep
+    from repro_torch.parallel import sharding as shd
+
+    cell = steps.make_cell(PAR_EP_ARCH, "train_4k", security="off",
+                           overrides=PAR_EP_CUTS)
+    cfg, model = cell.cfg, cell.model
+    e_l = cfg.moe.n_experts // mesh.size(mesh.mesh_dim_names.index("model"))
+    e0 = mesh.get_local_rank("model") * e_l
+    tok = torch.randint(0, cfg.vocab, (1, PAR_EP_SEQ), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(SEED + 1))
+    batch = {"tokens": tok, "labels": tok}
+    experts = {f"layers.moe.{n}" for n in ("w_gate", "w_up", "w_down")}
+
+    def fresh():
+        return model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                          cfg, "cuda")
+
+    def grads(params):
+        return {p: v.grad for p, v in _tree_paths(params).items()}
+
+    params = fresh()
+    held_g = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss_g, wall_g = _fwd_bwd(params, lambda p: model.loss(p, cfg, batch))
+    peak_g = torch.cuda.max_memory_allocated()
+    ref = {p: (g[:, e0:e0 + e_l] if p in experts else g).cpu()
+           for p, g in grads(params).items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    params = fresh()
+    moe = params["layers"]["moe"]
+    for n in ("w_gate", "w_up", "w_down"):
+        moe[n] = moe[n][:, e0:e0 + e_l].clone()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_cfg = cfg.with_(moe_ep=True)
+    with shd.use(shd.make_ctx(mesh)):
+        held_e = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss_e, wall_e = _fwd_bwd(params,
+                                  lambda p: model.loss(p, ep_cfg, batch))
+        peak_e = torch.cuda.max_memory_allocated()
+        errs = _rel_errs(grads(params), ref)
+        keep = moe_ep._x_grad_groups
+        moe_ep._x_grad_groups = lambda model_group, data_group: (data_group,)
+        try:
+            _fwd_bwd(params, lambda p: model.loss(p, ep_cfg, batch))
+        finally:
+            moe_ep._x_grad_groups = keep
+        ctl = _rel_errs(grads(params), ref)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss_global": loss_g, "loss_ep": loss_e,
+            "loss_rel": abs(loss_e - loss_g) / abs(loss_g),
+            "loss_bits_equal": (np.float32(loss_e).view(np.uint32)
+                                == np.float32(loss_g).view(np.uint32)).item(),
+            "grad_rel_max": max(errs.values()),
+            "grad_worst_leaf": max(errs, key=errs.get),
+            "grad_leaves_exact": sum(v == 0 for v in errs.values()),
+            "grad_leaves": len(errs),
+            "control_grad_rel_max": max(ctl.values()),
+            "experts_held": e_l, "wall_s_global": wall_g, "wall_s_ep": wall_e,
+            "peak_bytes_global": peak_g, "peak_bytes_ep": peak_e,
+            "held_bytes_global": held_g, "held_bytes_ep": held_e}
+
+
+def _pp_rank(mesh) -> dict:
+    """granite at full width and depth as PAR_PP_STAGES stages of the pipe:
+    the unpipelined mean over the microbatches first (loss and gradients
+    kept on the host, memory freed), then one sealed pipelined step
+    (``value_and_grad``), then the control that unseals the backward hop
+    with the forward domain."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as TF
+    from repro_torch.parallel import pipeline
+
+    cfg = configs.get_config(PAR_PP_ARCH)
+    sid = mesh.get_local_rank("pod")
+    M = PAR_PP_MICRO
+    tok = torch.randint(0, cfg.vocab, (M, 1, PAR_PP_SEQ), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(SEED + 2))
+    batch = {"tokens": tok, "labels": tok}
+    key = torch.tensor(steps.CELL_KEY, dtype=torch.int32, device="cuda")
+
+    def fresh():
+        return TF.init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                       "cuda")
+
+    def mean(params):              # the microbatches' losses summed in order
+        total = torch.zeros((), dtype=torch.float32, device="cuda")
+        for j in range(M):
+            total = total + TF.loss(params, cfg, {"tokens": tok[j],
+                                                  "labels": tok[j]})
+        return total / M
+
+    torch.cuda.reset_peak_memory_stats()
+    params = fresh()
+    loss_ref, wall_ref = _fwd_bwd(params, mean)
+    staged = pipeline.stack_params_by_stage(
+        {k: _grad_tree(v) for k, v in params.items()}, PAR_PP_STAGES)
+    ref = {p: (g[sid] if p.startswith("layers.") else g).cpu()
+           for p, g in _tree_paths(staged).items()}
+    del params, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    torch.cuda.reset_peak_memory_stats()
+    staged = pipeline.stack_params_by_stage(fresh(), PAR_PP_STAGES)
+    fn = pipeline.make_pipelined_loss(cfg, mesh, PAR_PP_STAGES, M,
+                                      seal_key=key)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = fn.value_and_grad(staged, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    loss = loss.item()
+    errs = _rel_errs(_tree_paths(grads), ref)
+    del grads
+    unseal = pipeline._unseal_hop
+    pipeline._unseal_hop = (lambda ct, k, tick, sender, domain, dt: unseal(
+        ct, k, tick, sender, pipeline.FWD_DOMAIN, dt))
+    try:
+        _, ctl = fn.value_and_grad(staged, batch)
+    finally:
+        pipeline._unseal_hop = unseal
+    ctl = _rel_errs(_tree_paths(ctl), ref)
+    del staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stage": sid, "loss_unpipelined": loss_ref, "loss": loss,
+            "loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+            "loss_bits_equal": (np.float32(loss).view(np.uint32) ==
+                                np.float32(loss_ref).view(np.uint32)).item(),
+            "grad_rel_max": max(errs.values()),
+            "grad_worst_leaf": max(errs, key=errs.get),
+            "grad_leaves_exact": sum(v == 0 for v in errs.values()),
+            "grad_leaves": len(errs),
+            "control_grad_rel_max": max(ctl.values()),
+            "wall_s": wall, "wall_s_unpipelined": wall_ref,
+            "launches": launches, "peak_bytes": peak}
+
+
+def _grad_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _grad_tree(v) for k, v in tree.items()}
+    return tree.grad
+
+
+def _restore_rank(mesh, path: str) -> dict:
+    """granite's sealed parameters restored onto the (data 1, model 2)
+    mesh by ``params_shardings``; each local ct and tags block against the
+    matching slice of the same leaves sealed here."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.core import sealed as sealed_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as TF
+    from repro_torch.train import fault
+
+    cell = steps.make_cell(PAR_PP_ARCH, "train_4k")
+    abstract = steps.abstract_params(cell)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, step = fault.elastic_restore(path, abstract, PAR_KEY_BYTES, mesh,
+                                      cell.model.param_specs(cell.cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = sealed_lib.seal_tree(
+        TF.init(torch.Generator(device="cuda").manual_seed(SEED), cell.cfg,
+                "cuda"), cell.key, cell.sec.weights, 1 << 8)
+    equal, held, sharded = True, 0, 0
+    got, want = _tree_paths(got), _tree_paths(want)
+    for p, st in got.items():
+        equal &= st.nonce == want[p].nonce
+        for f in ("ct", "tags"):
+            d, w = getattr(st, f), getattr(want[p], f)
+            size, off = compute_local_shape_and_global_offset(
+                d.shape, d.device_mesh, d.placements)
+            local = d.to_local()
+            block = w[tuple(slice(o, o + n) for o, n in zip(off, size))]
+            equal &= bool(torch.equal(local, block))
+            held += local.numel() * local.element_size()
+            sharded += local.numel() < d.numel()
+    return {"step": step, "equal": equal, "wall_s": wall, "bytes_held": held,
+            "blocks_sharded": sharded, "leaves": len(got)}
+
+
+def _par_rank(rank: int, port: int, out_dir: str, ckpt_path: str) -> None:
+    """One of the phase's two processes: EP, then the pipeline, then the
+    elastic restore; its results go to ``out_dir/rank<r>.json``.  An
+    exception ends the process with it (and fails the phase)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _init_gloo(rank, port, PAR_TIMEOUT_S)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_smoke_mesh(2)                            # data 1, model 2
+        pipe = make_smoke_mesh(2, pods=2)                    # pod 2
+        res = {"rank": rank, "mesh_s": time.perf_counter() - t0}
+        res["ep"] = _ep_rank(mesh)
+        dist.barrier()
+        res["pipeline"] = _pp_rank(pipe)
+        dist.barrier()
+        res["restore"] = _restore_rank(mesh, ckpt_path)
+        Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def hop_ctr_timing() -> dict:
+    """One pipeline hop's seal through the CTR kernel (a [1, PAR_PP_SEQ,
+    d_model] bf16 activation) in a CUDA graph, against its bound."""
+    from repro_torch import configs
+    from repro_torch.core import cipher
+    from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.kernels.ctr_cipher import ref as ctr_ref
+    from repro_torch.launch import steps
+    from repro_torch.parallel import pipeline
+
+    cfg = configs.get_config(PAR_PP_ARCH)
+    x = torch.randn((1, PAR_PP_SEQ, cfg.d_model), dtype=torch.bfloat16,
+                    device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    key = torch.tensor(steps.CELL_KEY, dtype=torch.int32, device="cuda")
+    nonce = pipeline.hop_nonce(1, 0, pipeline.FWD_DOMAIN)
+    # seal_bits' kernel launch, its tensor key derived outside the graph
+    tkeys = cipher.derive_tensor_key(key.reshape(1, 2), nonce)
+    x3 = x.view(torch.int16).reshape(1, -1, x.shape[-1])
+    check(torch.equal(ctr_ops.ctr_xor(x3, tkeys).reshape(x.shape),
+                      cipher.seal_bits(x, key, nonce)),
+          "the hop's timed launch is not seal_bits")
+    check(torch.equal(ctr_ops.ctr_xor(x3, tkeys),
+                      ctr_ref.ctr_xor_ref(x3, tkeys)),
+          "the hop's seal differs from the plain version")
+    ms = graph_ms(lambda: ctr_ops.ctr_xor(x3, tkeys))
+    plain_ms = device_ms(lambda: ctr_ref.ctr_xor_ref(x3, tkeys), reps=3)
+    b = ctr_payload_bound(tuple(x.shape), x.dtype)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"],
+            "bytes_per_tick": x.numel() * x.element_size(),
+            "ctr_bytes": b["bytes"], "alu_ops": b["alu_ops"]}
+
+
+def parallel_phase() -> dict:
+    """(h) Two processes on the one card over gloo: which gloo operations
+    take CUDA tensors, the hop's CTR time, then EP (moonshot at full
+    width), the sealed pipeline (granite at full size) and the elastic
+    restore of granite's sealed parameters saved here with
+    ``checkpoint.save``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import sealed as sealed_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as TF
+    from repro_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    probe = gloo_cuda_probe()
+    # moe_ep's collectives run on the card's tensors (the pipeline's hops
+    # are staged through host memory)
+    check(all(probe[op] == "ok" for op in ("all_reduce",
+                                           "all_gather_into_tensor")),
+          f"gloo refused a collective moe_ep runs on the card: {probe}")
+    hop = hop_ctr_timing()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        cell = steps.make_cell(PAR_PP_ARCH, "train_4k")
+        sealed = sealed_lib.seal_tree(
+            TF.init(torch.Generator(device="cuda").manual_seed(SEED),
+                    cell.cfg, "cuda"), cell.key, cell.sec.weights, 1 << 8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save(tmp, 0, sealed, PAR_KEY_BYTES)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(st.nbytes_ct + st.tags.numel() * 4
+                         for st in _tree_paths(sealed).values())
+        del sealed
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = mp.start_processes(_par_rank, args=(_free_port(), tmp, path),
+                                 nprocs=2, join=False, start_method="spawn")
+        t_end = time.monotonic() + PAR_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=2):
+                check(time.monotonic() < t_end, f"the parallel phase's ranks "
+                      f"did not end in {PAR_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+                 for r in range(2)]
+    for r in ranks:
+        ep, pp, rs = r["ep"], r["pipeline"], r["restore"]
+        check(ep["loss_rel"] <= PAR_EP_LOSS_RTOL
+              and ep["grad_rel_max"] <= PAR_EP_GRAD_RTOL,
+              f"rank {r['rank']}: EP against the global dispatch {ep}")
+        check(ep["control_grad_rel_max"] > PAR_EP_GRAD_RTOL,
+              f"rank {r['rank']}: the EP control passed the limit {ep}")
+        check(pp["loss_rel"] <= PAR_PP_LOSS_RTOL
+              and pp["grad_rel_max"] <= PAR_PP_GRAD_RTOL,
+              f"stage {pp['stage']}: pipeline against unpipelined {pp}")
+        check(pp["launches"]["ctr_cipher"] > 0,
+              f"stage {pp['stage']}: the pipelined step launched no CTR "
+              f"kernel {pp['launches']}")
+        check(rs["equal"] and rs["step"] == 0 and rs["blocks_sharded"] > 0,
+              f"rank {r['rank']}: elastic restore {rs}")
+    check(ranks[0]["pipeline"]["loss"] == ranks[1]["pipeline"]["loss"],
+          "the pipeline's stages returned different losses")
+    check(max(r["pipeline"]["control_grad_rel_max"] for r in ranks)
+          > PAR_PP_GRAD_RTOL,
+          "the pipeline's wrong-domain control passed the gradient limit")
+    return {"probe": probe, "hop": hop, "ranks": ranks, "save_s": save_s,
+            "ckpt_bytes": ckpt_bytes,
+            "seconds": time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -2251,7 +2837,14 @@ def main() -> int:
           f" configs and the cross-pod hook in "
           f"{time.perf_counter() - t_tf:.1f} s", flush=True)
 
-    # 12. report ----------------------------------------------------------
+    # 12. two processes on the one card over gloo: expert parallelism, the
+    # sealed pipeline, the elastic restore ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = parallel_phase()
+    print_parallel(par, card)
+
+    # 13. report ----------------------------------------------------------
     sources = {"ctr_cipher": ("src/repro_torch/csrc/ctr_cipher.cu",
                               "src/repro/kernels/ctr_cipher/kernel.py:43"),
                "tree_mac": ("src/repro_torch/csrc/tree_mac.cu",
@@ -2359,6 +2952,9 @@ def main() -> int:
     by_path["train SMOKE configs"] = {
         k: sum(r["launches"][k] for r in smoke_tf.values())
         for k in launches}
+    by_path["parallel pipeline step"] = {
+        k: sum(r["pipeline"]["launches"][k] for r in par["ranks"])
+        for k in launches}
     for arch, f in fams.items():
         by_path[f"{arch} sealed"] = f["sealed"]["launches"]
         if "fused" in f:
@@ -2377,6 +2973,13 @@ def main() -> int:
             **({"general_path_ms": f["step"]["general_ms"],
                 "general_path_bound_ms": f["step"]["general_bound_ms"]}
                if pre == "mac" else {})} for arch, f in fams.items()}
+    kernels[0]["pipeline_hop"] = {
+        "launches_per_step": [r["pipeline"]["launches"]["ctr_cipher"]
+                              for r in par["ranks"]],
+        **{k: par["hop"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "bytes_per_tick")},
+        "workload": f"one hop's seal of a [1, {PAR_PP_SEQ}, d_model] bf16 "
+                    f"activation of {PAR_PP_ARCH}; ms in a CUDA graph"}
     kernels[0]["crosspod"] = {
         mode: {k: xpod[mode][k] for k in ("ctr_ms", "ctr_bound_ms",
                                           "bound_by", "ctr_bytes")}

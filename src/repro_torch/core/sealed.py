@@ -68,12 +68,29 @@ def seal(x: torch.Tensor, key: torch.Tensor, nonce: int,
     if spec.protection is Protection.NONE:
         ct = x.contiguous().view(cipher.uint_dtype_for(x.dtype))
         return SealedTensor(ct, empty, nonce, x.dtype, spec)
+    if x.device.type == "meta":
+        return _abstract_seal(x, nonce, spec)
     ct = cipher.seal_bits(x, key, nonce)
     tags = empty
     if spec.protection.authenticates:
         tags = mac.block_tags(ct, mac.nonce_mac_key(key, nonce,
                                                     spec.mac_domain),
                               spec.chunk_words, spec.mac_domain)
+    return SealedTensor(ct, tags, nonce, x.dtype, spec)
+
+
+def _abstract_seal(x: torch.Tensor, nonce: int,
+                   spec: SealedSpec) -> SealedTensor:
+    """The SealedTensor of a meta tensor: the ciphertext's and tags' shapes
+    and dtypes, no crypto (the abstract states of ``launch/steps.py``)."""
+    shape = tuple(x.shape) or (1,)
+    ct = torch.empty(shape, dtype=cipher.uint_dtype_for(x.dtype),
+                     device="meta")
+    tags = torch.empty((0,), dtype=torch.int32, device="meta")
+    if spec.protection.authenticates:
+        last_w = -(-shape[-1] * ct.element_size() // 4)
+        tags = torch.empty(shape[:-1] + (mac.chunk_count(
+            last_w, spec.chunk_words),), dtype=torch.int32, device="meta")
     return SealedTensor(ct, tags, nonce, x.dtype, spec)
 
 

@@ -1,10 +1,11 @@
 """Step builders shared by the training launcher and chip_smoke.py (torch
-port of ``repro.launch.steps``, its single-device half): the cell of one
-(arch x shape x security) choice and the step callables of every family.
+port of ``repro.launch.steps``): the cell of one (arch x shape x security)
+choice, its abstract states and their shardings over a device mesh, and
+the step callables of every family.
 
-Left out, because they need a device mesh: the sharding half of the
-reference's module (``state_logical_specs``, ``tree_shardings``, the
-``abstract_*`` states, the ``*_shardings`` and ``batch_shardings``).
+The abstract states are built on ``torch.device("meta")`` (the reference's
+``jax.eval_shape``): shapes and dtypes, no memory.  A sharding is a
+``parallel.sharding.Sharding`` (mesh, one DTensor placement per mesh dim).
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from ..core.channel import resolve_device
 from ..core.policy import SecurityConfig
 from ..models import registry
 from ..models.config import SHAPES_BY_NAME, ShapeConfig
-from ..optim import AdamW
+from ..optim import AdamW, TrainState
+from ..parallel import sharding as shd
 from ..train import trainer as trainer_lib
 
 # the reference's cell key (uint32 words, kept as int32 with the same bits)
@@ -73,6 +75,76 @@ def batch_extra(cfg, seq_len: int) -> dict:
     if cfg.frontend == "frame":
         return {"frame_embeds": (seq_len, cfg.d_model)}
     return {}
+
+
+# ---------------------------------------------------------------------------
+# logical specs for (possibly sealed) trees
+# ---------------------------------------------------------------------------
+
+def state_logical_specs(cfg, model):
+    """Plaintext-structure logical specs for a TrainState."""
+    p = model.param_specs(cfg)
+    return TrainState(step="r", params=p, mu=p, nu=p)
+
+
+# ---------------------------------------------------------------------------
+# abstract states (meta tensors) + shardings
+# ---------------------------------------------------------------------------
+
+def _meta_params(cell: Cell):
+    return cell.model.init(torch.Generator(), cell.cfg, "meta")
+
+
+def abstract_train_state(cell: Cell):
+    state = cell.opt.init(_meta_params(cell))
+    return trainer_lib.seal_state(state, cell.key, cell.sec)
+
+
+def abstract_params(cell: Cell):
+    params = _meta_params(cell)
+    if cell.sealed:
+        params = sealed_lib.seal_tree(params, cell.key, cell.sec.weights,
+                                      1 << 8)
+    return params
+
+
+def abstract_decode_state(cell: Cell):
+    cfg, shape = cell.cfg, cell.shape
+    src_len = shape.seq_len if cfg.family == "encdec" else 0
+    return registry.make_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                      src_len, sealed=cell.sealed,
+                                      device="meta")
+
+
+def train_state_shardings(cell: Cell, mesh, abstract=None):
+    specs = state_logical_specs(cell.cfg, cell.model)
+    abstract = abstract if abstract is not None else abstract_train_state(cell)
+    return shd.tree_named_shardings(specs, mesh, abstract)
+
+
+def params_shardings(cell: Cell, mesh, abstract=None):
+    p = cell.model.param_specs(cell.cfg)
+    abstract = abstract if abstract is not None else abstract_params(cell)
+    return shd.tree_named_shardings(p, mesh, abstract)
+
+
+def decode_state_shardings(cell: Cell, mesh, abstract=None):
+    specs = registry.decode_state_specs(cell.cfg, sealed=cell.sealed)
+    abstract = (abstract if abstract is not None
+                else abstract_decode_state(cell))
+    return shd.tree_named_shardings(specs, mesh, abstract)
+
+
+def batch_shardings(cell: Cell, mesh, batch_specs: dict, stacked: bool):
+    """tokens/labels/frontends ({name: (shape, dtype)}): the batch over the
+    data axes, the accumulation dim unsharded."""
+    ctx = shd.make_ctx(mesh)
+    out = {}
+    for k, (shape, _) in batch_specs.items():
+        lead = (None,) if stacked else ()
+        rest = (None,) * (len(shape) - len(lead) - 1)
+        out[k] = ctx.named(*lead, "data", *rest, shape=shape)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -90,8 +90,9 @@ class ModelConfig:
                                   # that many token segments packs its own
                                   # slice of the capacity axis; changes
                                   # which tokens are dropped)
-    moe_ep: bool = False          # expert-parallel dispatch (the reference
-                                  # takes it only under a mesh; not ported)
+    moe_ep: bool = False          # expert-parallel dispatch under an active
+                                  # sharding context with a model axis
+                                  # (models/moe_ep.py)
     fused_sealed_attention: bool = False  # fixed-slot decode: the sealed
                                   # flash-decode kernel reads the sealed
                                   # cache directly (bf16 activations only)

@@ -56,6 +56,17 @@ def init(generator: torch.Generator, cfg, device="cuda"):
     }
 
 
+def param_specs(cfg):
+    enc = {"ln1": (None,), "attn": TF._fsdp(L.attn_specs(cfg)),
+           "ln2": (None,), "mlp": TF._fsdp(L.swiglu_specs())}
+    dec = {"ln1": (None,), "self_attn": TF._fsdp(L.attn_specs(cfg)),
+           "ln_x": (None,), "cross_attn": TF._fsdp(L.attn_specs(cfg)),
+           "ln2": (None,), "mlp": TF._fsdp(L.swiglu_specs())}
+    return {"embed": ("model", "data"), "enc_layers": TF.stack_specs(enc),
+            "enc_norm": (None,), "dec_layers": TF.stack_specs(dec),
+            "final_norm": (None,), "unembed": ("data", "model")}
+
+
 def encode(params, cfg, frames):
     """frames: [B, T_src, D] precomputed embeddings (frontend stub); each
     block under ``cfg.remat``."""
@@ -155,6 +166,17 @@ def init_cache(cfg, batch: int, max_len: int, src_len: int,
     if sealed:
         c["nonce"] = 0
     return c
+
+
+def cache_specs(cfg, sealed: bool = False):
+    kv = (None, "data", "model", None, None)
+    names = (("k_ct", "v_ct", "xk_ct", "xv_ct") if sealed
+             else _CACHE_FIELDS)
+    out = {n: kv for n in names}
+    out["pos"] = "r"
+    if sealed:
+        out["nonce"] = "r"
+    return out
 
 
 def _nonces(nonce: int, layer_idx: int) -> tuple[int, int, int, int]:

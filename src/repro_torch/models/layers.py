@@ -176,6 +176,18 @@ def attn_params(generator: torch.Generator, cfg, device, lead: tuple = ()):
     return p
 
 
+def attn_specs(cfg):
+    """Logical axes of ``attn_params``' leaves (``parallel/sharding.py``)."""
+    p = {
+        "wq": (None, "model"), "wk": (None, "model"),
+        "wv": (None, "model"), "wo": ("model", None),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
+    return p
+
+
 def project_qkv(p, cfg, x, positions):
     """x: [B,S,D] -> q [B,S,H,hd], k,v [B,S,K,hd] with RoPE + optional qk-norm."""
     B, S, _ = x.shape
@@ -206,6 +218,11 @@ def swiglu_params(generator: torch.Generator, d_model: int, d_ff: int, dtype,
         "w_up": dense_init(generator, d_model, d_ff, dtype, device, lead),
         "w_down": dense_init(generator, d_ff, d_model, dtype, device, lead),
     }
+
+
+def swiglu_specs():
+    return {"w_gate": (None, "model"), "w_up": (None, "model"),
+            "w_down": ("model", None)}
 
 
 def swiglu(p, x):

@@ -25,8 +25,11 @@ unit's ``_layer_nonce``, and a decode slot's counter rows are
 
 Port specifics (as ``transformer``): the unit scan is a Python loop;
 ``pos`` and ``nonce`` are host ints; ``decode_step`` writes the new slot
-into the cache's tensors in place.  With no device mesh the reference
-ignores ``moe_ep``, and so does the port.
+into the cache's tensors in place.  With ``cfg.moe_ep`` set, an active
+sharding context (``parallel/sharding.py``) whose mesh has a model axis
+that divides the expert count, the routed experts take the
+expert-parallel dispatch of ``moe_ep.py``, as in the reference; without
+such a mesh ``moe_ep`` is ignored.
 """
 from __future__ import annotations
 
@@ -79,6 +82,18 @@ def moe_params(generator, cfg, device, lead: tuple = ()):
     if m.shared_expert:
         p["shared"] = L.swiglu_params(generator, D, m.d_ff_shared or Fh, dt,
                                       device, lead)
+    return p
+
+
+def moe_specs(cfg):
+    p = {
+        "router": (None, None),
+        "w_gate": ("model", "data", None),
+        "w_up": ("model", "data", None),
+        "w_down": ("model", None, "data"),
+    }
+    if cfg.moe.shared_expert:
+        p["shared"] = L.swiglu_specs()
     return p
 
 
@@ -137,7 +152,15 @@ def moe_ffn(p, cfg, x):
 
 
 def _apply_moe(lp_moe, cfg, h2):
-    y = moe_ffn(lp_moe, cfg, h2)
+    from ..parallel import sharding as shd
+    ctx = shd.active()
+    names = () if ctx is None else ctx.mesh.mesh_dim_names
+    if (cfg.moe_ep and "model" in names and cfg.moe.n_experts
+            % ctx.mesh.size(names.index("model")) == 0):
+        from . import moe_ep
+        y = moe_ep.moe_ffn_ep(lp_moe, cfg, h2, ctx.mesh)
+    else:
+        y = moe_ffn(lp_moe, cfg, h2)
     if cfg.moe.shared_expert:
         y = y + L.swiglu(lp_moe["shared"], h2)
     return y
@@ -189,6 +212,16 @@ def _unit_init(generator, cfg, device, lead: tuple):
     }
 
 
+def _unit_specs(cfg):
+    if cfg.moe.moe_every == 2:
+        return {"ln1": (None, None), "ln2": (None, None),
+                "attn": TF.stack_specs(TF._fsdp(L.attn_specs(cfg))),
+                "mlp": TF._fsdp(L.swiglu_specs()),
+                "moe": moe_specs(cfg)}
+    return {"ln1": (None,), "attn": TF._fsdp(L.attn_specs(cfg)),
+            "ln2": (None,), "moe": moe_specs(cfg)}
+
+
 def _unit_apply(lp, cfg, x, positions, attend):
     """Apply one unit.  ``attend(j, q, k, v)`` is layer j's attention.
     Returns (x, [kept of each layer])."""
@@ -229,6 +262,12 @@ def init(generator: torch.Generator, cfg, device="cuda"):
         "unembed": L.dense_init(generator, cfg.d_model, cfg.vocab, dt,
                                 device),
     }
+
+
+def param_specs(cfg):
+    return {"embed": ("model", "data"),
+            "layers": TF.stack_specs(_unit_specs(cfg)),
+            "final_norm": (None,), "unembed": ("data", "model")}
 
 
 def _forward(params, cfg, x, positions):
@@ -279,6 +318,16 @@ def init_cache(cfg, batch: int, max_len: int, sealed: bool = False,
         cache["k"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
     return cache
+
+
+def cache_specs(cfg, sealed: bool = False):
+    kv = (None, None, "data", "model", None, None)
+    out = {"pos": "r"}
+    if sealed:
+        out.update({"k_ct": kv, "v_ct": kv, "nonce": "r"})
+    else:
+        out.update({"k": kv, "v": kv})
+    return out
 
 
 def _slot_rows(lpu: int, B: int, T: int, K: int, pos: int,

@@ -3,6 +3,7 @@
 
 Every family module exposes:
     init(generator, cfg, device) -> params
+    param_specs(cfg) -> logical sharding tree (parallel/sharding.py)
     loss(params, cfg, batch) -> scalar
     prefill(params, cfg, batch, max_len, seal_ctx=None) -> (logits, state)
     decode_step(params, cfg, state, tokens, seal_ctx=None) -> (logits, state)
@@ -51,3 +52,17 @@ def make_decode_state(cfg, batch: int, max_len: int, src_len: int = 0,
                 else rwkv.init_state(cfg, batch, device=device))
     return (ssm.init_state_sealed(cfg, batch, max_len, device=device)
             if sealed else ssm.init_state(cfg, batch, max_len, device=device))
+
+
+def decode_state_specs(cfg, sealed: bool = False):
+    """Uniform logical shardings for the decode state."""
+    get_model(cfg)
+    if cfg.family in ("dense", "vlm"):
+        return transformer.cache_specs(cfg, sealed)
+    if cfg.family == "moe":
+        return moe.cache_specs(cfg, sealed)
+    if cfg.family == "encdec":
+        return encdec.cache_specs(cfg, sealed)
+    if cfg.family == "rwkv":
+        return rwkv.state_specs(cfg, sealed)
+    return ssm.state_specs(cfg, sealed)

@@ -92,6 +92,24 @@ def init(generator: torch.Generator, cfg, device="cuda"):
     }
 
 
+def param_specs(cfg):
+    tm = {
+        "mu": (None, None), "mix_lora_a": (None, None),
+        "mix_lora_b": (None, None, None),
+        "wr": ("data", "model"), "wk": ("data", "model"),
+        "wv": ("data", "model"), "wg": ("data", "model"),
+        "wo": ("model", "data"),
+        "w_base": (None,), "w_lora_a": (None, None), "w_lora_b": (None, None),
+        "u": (None, None), "ln_x": (None,),
+    }
+    cm = {"mu_k": (None,), "mu_r": (None,),
+          "wk": ("data", "model"), "wv": ("model", "data"),
+          "wr": ("data", None)}
+    block = {"ln1": (None,), "tm": tm, "ln2": (None,), "cm": cm}
+    return {"embed": ("model", "data"), "layers": TF.stack_specs(block),
+            "final_norm": (None,), "unembed": ("data", "model")}
+
+
 # ---------------------------------------------------------------------------
 # time mix
 # ---------------------------------------------------------------------------
@@ -185,6 +203,15 @@ def init_state_sealed(cfg, batch: int, n_layers: int | None = None,
             "tm_x": torch.zeros_like(st["tm_x"], dtype=udt),
             "cm_x": torch.zeros_like(st["cm_x"], dtype=udt),
             "pos": 0, "nonce": 0}
+
+
+def state_specs(cfg, sealed: bool = False):
+    s = {"wkv": (None, "data", "model", None, None),
+         "tm_x": (None, "data", None), "cm_x": (None, "data", None),
+         "pos": "r"}
+    if sealed:
+        s["nonce"] = "r"
+    return s
 
 
 def _forward(params, cfg, x, states):

@@ -137,6 +137,24 @@ def init(generator: torch.Generator, cfg, device="cuda"):
     }
 
 
+def m2_specs(cfg):
+    return {
+        "in_proj": ("data", "model"), "conv_w": (None, "model"),
+        "conv_b": ("model",), "A_log": (None,), "dt_bias": (None,),
+        "D": (None,), "norm": ("model",), "out_proj": ("model", "data"),
+    }
+
+
+def param_specs(cfg):
+    block = {"ln": (None,), "m2": m2_specs(cfg)}
+    shared = {"concat_proj": (None, "model"), "ln1": (None,),
+              "attn": L.attn_specs(cfg), "ln2": (None,),
+              "mlp": L.swiglu_specs()}
+    return {"embed": ("model", "data"), "layers": TF.stack_specs(block),
+            "shared_attn": shared, "final_norm": (None,),
+            "unembed": ("data", "model")}
+
+
 def n_attn_invocations(cfg) -> int:
     return (cfg.n_layers + cfg.hybrid.attn_every - 1) // cfg.hybrid.attn_every
 
@@ -257,6 +275,17 @@ def init_state(cfg, batch: int, max_len: int, device="cuda"):
                               device=device),
         "pos": 0,
     }
+
+
+def state_specs(cfg, sealed: bool = False):
+    s = {"ssm": (None, "data", "model", None, None),
+         "conv": (None, "data", None, "model"),
+         "attn_k": (None, "data", "model", None, None),
+         "attn_v": (None, "data", "model", None, None),
+         "pos": "r"}
+    if sealed:
+        s["nonce"] = "r"
+    return s
 
 
 _SEAL_FIELDS = ("ssm", "conv", "attn_k", "attn_v")

@@ -63,6 +63,68 @@ def init(generator: torch.Generator, cfg, device="cuda"):
     return params
 
 
+# ---------------------------------------------------------------------------
+# logical sharding specs (parallel/sharding.py): a tuple of logical axes per
+# leaf dimension, "r" for a replicated scalar
+# ---------------------------------------------------------------------------
+
+def map_specs(fn, spec_tree):
+    """``fn`` applied to every spec tuple of a nested dict of specs."""
+    if isinstance(spec_tree, dict):
+        return {k: map_specs(fn, v) for k, v in spec_tree.items()}
+    return fn(spec_tree)
+
+
+def stack_specs(spec_tree):
+    """The specs of the leaves stacked along a new leading (layer) dim."""
+    return map_specs(lambda s: (None, *s), spec_tree)
+
+
+def _fsdp(spec_tree):
+    """Add FSDP (data-axis) sharding on the first non-model dim of 2D+
+    params."""
+    def f(s):
+        if len(s) < 2:
+            return s
+        out = list(s)
+        for i, ax in enumerate(out):
+            if ax is None:
+                out[i] = "data"
+                break
+        return tuple(out)
+    return map_specs(f, spec_tree)
+
+
+def _block_specs(cfg):
+    return {"ln1": (None,), "attn": L.attn_specs(cfg),
+            "ln2": (None,), "mlp": L.swiglu_specs()}
+
+
+def param_specs(cfg):
+    block = _fsdp(_block_specs(cfg))
+    specs = {
+        "embed": ("model", "data"),
+        "layers": stack_specs(block),
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ("data", "model")
+    if cfg.frontend == "patch":
+        specs["patch_proj"] = (None, "model")
+    return specs
+
+
+def cache_specs(cfg, sealed: bool = False):
+    """Logical shardings for the cache: batch over data, seq over model."""
+    kv = (None, "data", "model", None, None)
+    out = {"pos": "r"}
+    if sealed:
+        out.update({"k_ct": kv, "v_ct": kv, "nonce": "r"})
+    else:
+        out.update({"k": kv, "v": kv})
+    return out
+
+
 def logits_of(params, cfg, x):
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]

@@ -12,8 +12,13 @@ The manifest schema, the leaf order and ``meta.keys`` (the reference's
 ``jax.tree_util.keystr`` paths) are the reference's, and leaves are stored
 with its dtypes (ciphertext and tags as uint16/uint32), so a checkpoint
 saved by either package restores in the other.  One exception: a plain
-bf16 leaf (an unsealed state) is stored as its uint16 bits.  Re-sharding
-onto a mesh on restore waits for the port's parallel slice.
+bf16 leaf (an unsealed state) is stored as its uint16 bits.
+
+Restore verifies everything, then (optionally) re-shards each leaf onto a
+device mesh — the elastic-restart path: every rank reads the checkpoint
+and keeps its own block of each leaf as a DTensor
+(``parallel.sharding.distribute``), so a checkpoint written by one
+process restores onto any mesh whose axes divide the dimensions.
 
     ckpt_000042/
       manifest.json     chunk index + merkle_root + hmac + meta
@@ -28,6 +33,7 @@ import torch
 
 from ..core.sealed import SealedTensor
 from ..optim import TrainState
+from ..parallel import sharding as shd
 from ..store import SealedStore, StoreError
 
 TENANT = "_trainer"
@@ -93,7 +99,7 @@ def save(base_dir: str, step: int, state, key_bytes: bytes) -> str:
     return os.path.join(base_dir, _object_id(step))
 
 
-def _to_tensor(arr: np.ndarray, like) -> torch.Tensor | int:
+def _to_tensor(arr: np.ndarray, like, sharding=None) -> torch.Tensor | int:
     if isinstance(like, int):
         return int(arr) & 0xFFFFFFFF
     arr = np.asarray(arr)
@@ -102,27 +108,44 @@ def _to_tensor(arr: np.ndarray, like) -> torch.Tensor | int:
     t = torch.from_numpy(arr.copy())
     if t.dtype != like.dtype and t.element_size() == like.element_size():
         t = t.view(like.dtype)
-    return t.reshape(like.shape).to(like.device)
+    t = t.reshape(like.shape)
+    if sharding is None:
+        return t.to(like.device)
+    return shd.distribute(t, sharding)
 
 
-def _rebuild(like, it):
+def _rebuild(like, it, sh=None):
+    """``like``'s structure from the leaf iterator; ``sh``: the matching
+    tree of shardings, or None."""
+    def kids(*names):
+        return [(getattr(like, n), None if sh is None else getattr(sh, n))
+                for n in names]
     if isinstance(like, TrainState):
-        return TrainState(*(_rebuild(c, it) for c in
-                            (like.step, like.params, like.mu, like.nu)))
+        return TrainState(*(_rebuild(c, it, s) for c, s in
+                            kids("step", "params", "mu", "nu")))
     if isinstance(like, SealedTensor):
-        ct, tags, nonce = (_rebuild(c, it) for c in
-                           (like.ct, like.tags, like.nonce))
+        ct, tags, nonce = (_rebuild(c, it, s) for c, s in
+                           kids("ct", "tags", "nonce"))
         return SealedTensor(ct, tags, nonce, like.dtype, like.spec)
     if isinstance(like, dict):
-        return {k: _rebuild(like[k], it) for k in sorted(like)}
+        return {k: _rebuild(like[k], it, None if sh is None else sh[k])
+                for k in sorted(like)}
     if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(c, it) for c in like)
-    return _to_tensor(next(it), like)
+        subs = [None] * len(like) if sh is None else sh
+        return type(like)(_rebuild(c, it, s) for c, s in zip(like, subs))
+    return _to_tensor(next(it), like, sh)
 
 
-def restore(path: str, like_state, key_bytes: bytes):
-    """Verify + load into the structure, dtypes and devices of
-    ``like_state``.  Returns (state, step)."""
+def restore(path: str, like_state, key_bytes: bytes, shardings=None):
+    """Verify + load into the structure and dtypes of ``like_state``
+    (which may be an abstract state of meta tensors when ``shardings`` is
+    given).  Returns (state, step).
+
+    shardings: an optional tree of ``parallel.sharding.Sharding`` matching
+    the state (``parallel.sharding.tree_named_shardings`` with ``like``):
+    each tensor leaf becomes a DTensor holding this rank's block, on the
+    mesh's device.  Without it each leaf goes to ``like_state``'s
+    device."""
     base_dir, object_id = os.path.split(os.path.normpath(path))
     store = SealedStore(base_dir or ".")
     try:
@@ -139,7 +162,8 @@ def restore(path: str, like_state, key_bytes: bytes):
         raise CheckpointError(f"checkpoint {object_id!r} holds "
                               f"{len(arrays)} leaves, the state "
                               f"{len(_flatten(like_state))}")
-    return _rebuild(like_state, iter(arrays)), manifest["meta"]["step"]
+    return (_rebuild(like_state, iter(arrays), shardings),
+            manifest["meta"]["step"])
 
 
 def latest(base_dir: str):

@@ -1,7 +1,6 @@
 """Fault tolerance: supervised training loop with checkpoint/restart,
-failure injection and straggler mitigation (torch port of
-``repro.train.fault``; the elastic re-shard on restore waits for the
-port's parallel slice).
+failure injection, straggler mitigation and the elastic restore onto a
+device mesh (torch port of ``repro.train.fault``).
 
 On a real cluster the failure signal comes from the coordinator (missed
 heartbeats / ICI timeouts); here ``FailureInjector`` raises at configured
@@ -150,3 +149,20 @@ class Supervisor:
                     step = ck_step
                     events["restarts"] += 1
         return state, metrics, events
+
+
+def elastic_restore(path: str, abstract_state, key_bytes: bytes, mesh,
+                    logical_specs):
+    """Restore a checkpoint onto a (possibly different) mesh — elastic
+    scaling.
+
+    logical_specs: the plaintext tree of logical axis tuples (see
+    ``parallel/sharding.py``); every leaf of ``abstract_state`` (sealed or
+    not, real or on the meta device) becomes a DTensor of this rank's block
+    under ``parallel.sharding.tree_named_shardings``, so a checkpoint
+    written by one process restores onto any mesh whose axes divide the
+    dims."""
+    from ..parallel.sharding import tree_named_shardings
+    shardings = tree_named_shardings(logical_specs, mesh, abstract_state)
+    return checkpoint.restore(path, abstract_state, key_bytes,
+                              shardings=shardings)

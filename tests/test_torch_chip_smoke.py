@@ -241,3 +241,66 @@ def test_crosspod_payload_bound_counts_rows_of_words(shape, dtype, nbytes,
     assert b["bytes"] == nbytes
     assert b["alu_ops"] == blocks * chip_smoke.CTR_ALU_OPS_PER_BLOCK
     assert b["bound_by"] == "bytes"
+
+
+def test_parallel_reduced_lists_every_cut():
+    """EP: moonshot at 4 of 48 layers on one 2048-token sequence; the
+    pipeline: granite on 4 microbatches of one 1024-token sequence."""
+    assert chip_smoke.parallel_reduced() == {
+        "ep": {"n_layers": [48, 4], "seq_len": [4096, 2048],
+               "global_batch": [256, 1]},
+        "pipeline": {"seq_len": [4096, 1024], "global_batch": [256, 4],
+                     "microbatch": [16, 1]}}
+
+
+def test_parallel_phase_lines_parse(capsys):
+    """``print_parallel``: one line of gloo verdicts, one EP and one
+    pipeline line a rank, the hop line, one restore line a rank and the
+    phase's time; every number line carries the card."""
+    import json
+    import re
+
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    ep = dict(loss_global=12.5, loss_ep=12.5, loss_rel=0.0,
+              loss_bits_equal=True, grad_rel_max=0.0,
+              grad_worst_leaf="embed", grad_leaves_exact=30, grad_leaves=30,
+              control_grad_rel_max=0.7, experts_held=32, wall_s_global=1.0,
+              wall_s_ep=1.5, peak_bytes_global=2 ** 34,
+              peak_bytes_ep=2 ** 33, held_bytes_global=2 ** 33,
+              held_bytes_ep=2 ** 32)
+    launches = {"ctr_cipher": 8, "tree_mac": 0, "sealed_attention": 0,
+                "sealed_matmul": 0}
+    ranks = [{"rank": r, "mesh_s": 7.0, "ep": ep,
+              "pipeline": dict(stage=r, loss=11.0, loss_unpipelined=11.0,
+                               loss_rel=0.0, loss_bits_equal=True,
+                               grad_rel_max=0.0, grad_worst_leaf="embed",
+                               grad_leaves_exact=12, grad_leaves=12,
+                               control_grad_rel_max=float("inf"),
+                               wall_s=2.0, wall_s_unpipelined=1.8,
+                               launches=launches, peak_bytes=2 ** 34),
+              "restore": dict(step=0, equal=True, wall_s=9.0,
+                              bytes_held=2 ** 31, blocks_sharded=20,
+                              leaves=12)} for r in range(2)]
+    par = {"probe": {op: "ok" for op in chip_smoke.GLOO_PROBE_OPS},
+           "hop": dict(ms=0.01, plain_ms=0.5, bound_ms=0.0026,
+                       bound_by="bytes", bytes_per_tick=4194304),
+           "ranks": ranks, "save_s": 5.0, "ckpt_bytes": 5 * 2 ** 30,
+           "seconds": 120.0}
+    chip_smoke.print_parallel(par, card)
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 9 and all(ln.startswith("parallel") for ln in lines)
+    assert all(ln.endswith(card) for ln in lines[:-1])
+    probe = re.search(r"on the card (\{.*?\}); reduced", lines[0])
+    assert json.loads(probe.group(1))["send_recv"] == "ok"
+    hop = re.search(r"^parallel pipeline: (\d+) bytes a hop a tick; .* "
+                    r"([\d.]+) ms in a CUDA graph against a ([\d.]+) ms "
+                    r"bound \((\w+)\), plain version ([\d.]+) ms; "
+                    r"fill-drain bubble .* = ([\d.]+);",
+                    lines[5])
+    assert hop.groups() == ("4194304", "0.0100", "0.0026", "bytes", "0.500",
+                            "0.200")
+    assert [ln.split(":")[0] for ln in lines[1:5]] == [
+        "parallel ep rank 0", "parallel ep rank 1",
+        "parallel pipeline stage 0", "parallel pipeline stage 1"]
+    assert "32 experts held" in lines[1] and "bit for bit True" in lines[3]
+    assert "every block equal bit for bit True" in lines[6]

@@ -27,7 +27,9 @@ SLICE_MODULES = (
     "repro_torch.configs.llama4_maverick_400b_a17b",
     "repro_torch.configs.seamless_m4t_large_v2",
     "repro_torch.launch.steps", "repro_torch.parallel.compress",
-    "repro_torch.parallel.collectives", "repro_torch.configs.llama3_405b")
+    "repro_torch.parallel.collectives", "repro_torch.configs.llama3_405b",
+    "repro_torch.launch.mesh", "repro_torch.parallel.sharding",
+    "repro_torch.parallel.pipeline", "repro_torch.models.moe_ep")
 
 PROBE = """
 import pkgutil, sys
