@@ -106,6 +106,18 @@ From the root of a checkout:  python3 chip_smoke.py
    saved by ``checkpoint.save`` here and restored onto
    ``make_smoke_mesh(2)`` by ``elastic_restore``: every local ct and tags
    block equal to the slice of the same leaves sealed again, bit for bit;
+   then granite's sealed train state sharded over that mesh
+   (``train_state_shardings``; each rank seals its own blocks against the
+   leaves' global CTR counters, the CTR kernel's column offset for the
+   leaves split on their last axis) through ``make_train_step_fn`` in
+   place, 3 steps of 2 microbatches of 1 x 1024 tokens: the first step's
+   loss within 1e-3 of one process's step on the same batch (taken here
+   before the ranks start), seal_ok, CTR and MAC launched every step,
+   each rank's peak and sealed bytes held, and a flipped bit in one rank's
+   block of a column-sharded leaf that poisons the state on both ranks;
+   the kernel checks above hold the CTR kernel's column offset (col0 4096
+   and col0 3) against its plain version, and the MAC of a block's own
+   chunks, repositioned, against the whole rows' tags;
 12. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -214,6 +226,16 @@ PAR_PP_ARCH, PAR_PP_STAGES, PAR_PP_MICRO, PAR_PP_SEQ = "granite-3-2b", 2, 4, 102
 # largest entry; the controls must exceed the gradient limit
 PAR_EP_LOSS_RTOL, PAR_EP_GRAD_RTOL = 1e-3, 2e-2
 PAR_PP_LOSS_RTOL, PAR_PP_GRAD_RTOL = 1e-4, 1e-2
+# the sharded sealed train step: granite at full width and depth on
+# make_smoke_mesh(2) (data 1, model 2), each rank holding its blocks of the
+# sealed state; two microbatches of 1 x 1024 tokens a step (train_4k's
+# 256 x 4096 tokens cut to 2048), three steps, then one with a flipped
+# ciphertext bit in one rank's block.  Its first step's loss is held
+# against one process's step on the same batch and state within this
+# limit (the reference test's), set before the first run
+PAR_SH_MICRO, PAR_SH_SEQ, PAR_SH_STEPS = 2, 1024, 3
+PAR_SH_LOSS_ATOL = 1e-3
+PAR_SH_TAMPER_RANK, PAR_SH_TAMPER_LEAF = 1, ("layers", "mlp", "w_gate")
 PAR_KEY_BYTES = b"chip-smoke-elastic-restore"
 PAR_TIMEOUT_S = 600
 GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor",
@@ -374,21 +396,22 @@ def kernel_checks(sealed, provider_key):
 
     results = {"ctr_cipher": [], "tree_mac": []}
 
-    def ctr_case(name, x, tkeys, rows=None, step_share=1):
-        out = ctr_ops.ctr_xor(x, tkeys, rows)
-        ref = ctr_ref.ctr_xor_ref(x, tkeys, rows)
+    def ctr_case(name, x, tkeys, rows=None, step_share=1, col0=0):
+        out = ctr_ops.ctr_xor(x, tkeys, rows, col0)
+        ref = ctr_ref.ctr_xor_ref(x, tkeys, rows, col0)
         mism, err = compare(out, ref)
         del out, ref
-        ms = graph_ms(lambda: ctr_ops.ctr_xor(x, tkeys, rows))
-        event_ms = device_ms(lambda: ctr_ops.ctr_xor(x, tkeys, rows))
-        plain_ms = device_ms(lambda: ctr_ref.ctr_xor_ref(x, tkeys, rows), reps=1)
+        ms = graph_ms(lambda: ctr_ops.ctr_xor(x, tkeys, rows, col0))
+        event_ms = device_ms(lambda: ctr_ops.ctr_xor(x, tkeys, rows, col0))
+        plain_ms = device_ms(lambda: ctr_ref.ctr_xor_ref(x, tkeys, rows,
+                                                         col0), reps=1)
         n, r, e = x.shape
-        words = -(-e * x.element_size() // 4)
-        blocks = n * r * ((words + 1) // 2)
+        epb = 8 // x.element_size()          # elements a Threefry block
+        blocks = n * r * (-(-(col0 % epb + e) // epb))
         nbytes = 2 * x.numel() * x.element_size()
         b, by = bound_of(nbytes, blocks * CTR_ALU_OPS_PER_BLOCK)
         results["ctr_cipher"].append(dict(
-            shape=name, dims=list(x.shape), mismatches=mism,
+            shape=name, dims=list(x.shape), col0=col0, mismatches=mism,
             max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
             bytes=nbytes, ops=blocks * CTR_OPS_PER_BLOCK,
             alu_ops=blocks * CTR_ALU_OPS_PER_BLOCK, bound_ms=b, bound_by=by,
@@ -465,6 +488,35 @@ def kernel_checks(sealed, provider_key):
                                                  leaf.spec.mac_domain), cw,
                              leaf.spec.mac_domain)[None]
         mac_case(f"weight {path} {list(leaf.ct.shape)}", x, lkeys)
+    # the sharded train step's blocks: model rank 1's columns of one layer
+    # of w_gate against the leaf's global counters (col0 4096, whole
+    # Threefry blocks), a block whose columns start inside a counter block
+    # (col0 3, the element-wise path), and the MAC of rank 1's own chunks
+    # of that layer, its tags moved to their place in the leaf
+    # (mac.reposition) equal to the whole rows' tags
+    leaf = sealed["layers"]["mlp"]["w_gate"]
+    tkey = cipher.derive_tensor_key(provider_key, leaf.nonce)[None]
+    rows, width = leaf.ct.shape[1], leaf.ct.shape[-1]
+    half = width // 2
+    block = leaf.ct[0, :, half:].contiguous()[None]
+    ctr_case(f"sharded block w_gate[0] [{rows} x {half} of {width} bf16, "
+             f"col0 {half}]", block, tkey, col0=half)
+    ctr_case("sharded block [1024 x 1000 bf16, col0 3]",
+             bits((1, 1024, 1000), torch.int16), tkey, col0=3)
+    nc = mac.chunk_count(width // 2, leaf.spec.chunk_words)
+    lkeys = mac.mac_keys(mac.nonce_mac_key(provider_key, leaf.nonce,
+                                           leaf.spec.mac_domain),
+                         width // 2 // nc, leaf.spec.mac_domain)
+    mac_case(f"sharded block w_gate[0] [{rows} x {half} of {width} bf16, "
+             f"own chunks]", block, lkeys[None])
+    got = mac_ops.mac_tags(block, lkeys[None])[0]
+    n = got.shape[-1]
+    r = torch.arange(rows, device="cuda")[:, None]
+    c = torch.arange(n, device="cuda")
+    moved = mac.reposition(got, lkeys[0], r * n + c, r * nc + nc - n + c)
+    whole = mac_ops.mac_tags(leaf.ct[0][None].contiguous(), lkeys[None])[0]
+    results["tree_mac"][-1]["mismatches"] += int(
+        (moved != whole[:, nc - n:]).sum())
     return results
 
 
@@ -1895,6 +1947,22 @@ def parallel_reduced() -> dict:
                          "microbatch": [TRAIN_4K.microbatch, 1]}}
 
 
+def sharded_reduced() -> dict:
+    """The sharded train step's cuts of train_4k: {what: [published,
+    run]}."""
+    from repro_torch.models.config import TRAIN_4K
+
+    return {"seq_len": [TRAIN_4K.seq_len, PAR_SH_SEQ],
+            "global_batch": [TRAIN_4K.global_batch, PAR_SH_MICRO],
+            "microbatch": [TRAIN_4K.microbatch, 1]}
+
+
+def _gloo_summary(step: dict) -> dict:
+    """One sharded step's gloo collectives as {name: [calls, s, bytes]}."""
+    return {name: [c["calls"], round(c["s"], 3), c["bytes"]]
+            for name, c in step["collectives"].items()}
+
+
 def print_parallel(par: dict, card: str) -> None:
     print(f"parallel: gloo operations on tensors on the card "
           f"{json.dumps(par['probe'])}; reduced from train_4k "
@@ -1955,6 +2023,40 @@ def print_parallel(par: dict, card: str) -> None:
     print(f"parallel: phase {par['seconds']:.1f} s (mesh set-up "
           f"{max(r['mesh_s'] for r in par['ranks']):.1f} s a rank)",
           flush=True)
+
+
+def print_sharded(par: dict, card: str) -> None:
+    """One line a rank of the parallel phase's sharded sealed train
+    step."""
+    one = par["one_process"]
+    for r in par["ranks"]:
+        sh = r["sharded"]
+        st = sh["steps"]
+        print(f"sharded train rank {r['rank']}: {PAR_PP_ARCH} at full width"
+              f" and depth, sealed state sharded over mesh (data 1, model 2),"
+              f" {PAR_SH_MICRO} microbatches of 1 x {PAR_SH_SEQ} tokens a "
+              f"step (reduced from train_4k "
+              f"{json.dumps(sharded_reduced())}); step 0 loss "
+              f"{st[0]['loss']:.6f} against one "
+              f"process's {one['loss']:.6f} (abs diff "
+              f"{abs(st[0]['loss'] - one['loss']):.3g}, limit "
+              f"{PAR_SH_LOSS_ATOL}); losses {[x['loss'] for x in st]}; "
+              f"seal_ok {[x['seal_ok'] for x in st]}; grad norm "
+              f"{st[0]['grad_norm']:.6f} (one process "
+              f"{one['grad_norm']:.6f}); steps "
+              f"{[round(x['wall_s'], 3) for x in st]} s wall (one process "
+              f"{one['wall_s']:.3f} s, peak "
+              f"{one['peak_bytes'] / 2**30:.2f} GiB); launches a step (ctr, "
+              f"mac) {[(x['ctr'], x['mac']) for x in st]}; peak "
+              f"{sh['peak_bytes'] / 2**30:.2f} GiB; sealed bytes held "
+              f"{sh['held_bytes']} of {sh['whole_bytes']}; blocks sealed in "
+              f"{sh['build_s']:.2f} s; gloo a step [calls, s, bytes] "
+              f"{json.dumps([_gloo_summary(x) for x in st])}; "
+              f"a flipped bit in rank "
+              f"{PAR_SH_TAMPER_RANK}'s block of "
+              f"{'/'.join(PAR_SH_TAMPER_LEAF)}: seal_ok "
+              f"{sh['tamper_seal_ok']}, state poisoned "
+              f"{sh['tamper_poisoned']}; {card}", flush=True)
 
 
 def _counted():
@@ -2387,10 +2489,171 @@ def _restore_rank(mesh, path: str) -> dict:
             "blocks_sharded": sharded, "leaves": len(got)}
 
 
+def _sharded_batch(cell, mesh, i: int) -> dict:
+    """Step ``i``'s PAR_SH_MICRO microbatches of 1 x PAR_SH_SEQ tokens, as
+    DTensors over the data axis (on the one process: plain tensors)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding as shd
+
+    data = SyntheticLM(vocab=cell.cfg.vocab, seq_len=PAR_SH_SEQ, batch=1,
+                       seed=SEED)
+    batch = {k: torch.as_tensor(v, device=cell.key.device)
+             for k, v in data.microbatches_at(i, PAR_SH_MICRO).items()}
+    if mesh is None:
+        return batch
+    bsh = steps.batch_shardings(
+        cell, mesh, {k: (tuple(v.shape), v.dtype) for k, v in batch.items()},
+        stacked=True)
+    return {k: shd.distribute(v, bsh[k]) for k, v in batch.items()}
+
+
+class _CollectiveClock:
+    """Wall seconds and bytes of the gloo collectives the port calls
+    (``all_gather_into_tensor``: bytes gathered; ``all_reduce``: bytes
+    reduced), each timed between two device syncs, while installed."""
+    NAMES = ("all_gather_into_tensor", "all_reduce")
+
+    def __init__(self):
+        self.stats = {n: [0, 0.0, 0] for n in self.NAMES}
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(dist, n, self._timed(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+    def _timed(self, name, fn):
+        def call(out, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(out, *args, **kwargs)
+            torch.cuda.synchronize()
+            st = self.stats[name]
+            st[0] += 1
+            st[1] += time.perf_counter() - t0
+            st[2] += out.numel() * out.element_size()
+            return res
+        return call
+
+    def take(self) -> dict:
+        out = {n: {"calls": c, "s": t, "bytes": b}
+               for n, (c, t, b) in self.stats.items()}
+        self.stats = {n: [0, 0.0, 0] for n in self.NAMES}
+        return out
+
+
+def _sharded_rank(mesh) -> dict:
+    """granite at full width and depth, its sealed state sharded over the
+    (data 1, model 2) mesh by ``train_state_shardings``: each rank seals
+    its own blocks (``seal_state`` on DTensor leaves), takes PAR_SH_STEPS
+    steps through ``make_train_step_fn`` in place under the mesh's
+    context, then one with a flipped ciphertext bit in PAR_SH_TAMPER_RANK's
+    block of a leaf sharded on its last axis."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.core import sealed as sealed_lib
+    from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.kernels.tree_mac import ops as mac_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.config import DTYPES
+    from repro_torch.optim import TrainState
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import trainer
+
+    cell = steps.make_cell(PAR_PP_ARCH, "train_4k")
+    sh = steps.train_state_shardings(cell, mesh)
+    dev = cell.key.device
+    t0 = time.perf_counter()
+    params = TF.init(torch.Generator(device=dev).manual_seed(SEED),
+                     cell.cfg, dev)
+    leaves = sealed_lib.tree_leaves(params)
+    shs = [s.ct for s in sealed_lib.tree_leaves(sh.params)]
+    for i, (x, s) in enumerate(zip(leaves, shs)):
+        leaves[i] = shd.distribute(x, s)
+    del params, x
+    dt = DTYPES[cell.opt.state_dtype]
+    mom = [[shd.distribute(torch.zeros(x.shape, dtype=dt, device=dev), s)
+            for s, x in zip(shs, leaves)] for _ in range(2)]
+    tree = sh.params                     # the parameters' tree structure
+    plain = TrainState(
+        step=shd.distribute(torch.zeros((), dtype=torch.int32), sh.step),
+        params=sealed_lib.tree_unflatten(tree, leaves),
+        mu=sealed_lib.tree_unflatten(tree, mom[0]),
+        nu=sealed_lib.tree_unflatten(tree, mom[1]))
+    state = trainer.seal_state(plain, cell.key, cell.sec)
+    del plain, leaves, mom
+    gc.collect()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = whole = 0
+    for st in sealed_lib.tree_leaves((state.params, state.mu, state.nu)):
+        for d in (st.ct, st.tags):
+            local = d.to_local()
+            held += local.numel() * local.element_size()
+            whole += d.numel() * local.element_size()
+            if any(isinstance(p, Shard) and mesh.size(i) > 1
+                   for i, p in enumerate(d.placements)):
+                check(local.numel() < d.numel(), "a sharded leaf held whole")
+    torch.cuda.empty_cache()
+    fn = steps.make_train_step_fn(cell, in_place=True)
+    out = []
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with shd.use(shd.make_ctx(mesh)), _CollectiveClock() as clock:
+        for i in range(PAR_SH_STEPS):
+            b = _sharded_batch(cell, mesh, i)
+            c0, m0 = ctr_ops.ctr_xor.launches, mac_ops.mac_tags.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = fn(state, b)
+            torch.cuda.synchronize()
+            out.append(dict(wall_s=time.perf_counter() - t1,
+                            loss=float(m["loss"]),
+                            grad_norm=float(m["grad_norm"]),
+                            seal_ok=bool(m["seal_ok"]),
+                            ctr=ctr_ops.ctr_xor.launches - c0,
+                            mac=mac_ops.mac_tags.launches - m0,
+                            collectives=clock.take()))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    with shd.use(shd.make_ctx(mesh)):
+        st = state.params
+        for k in PAR_SH_TAMPER_LEAF:
+            st = st[k]
+        col_sharded = isinstance(st.ct.placements[-1], Shard)
+        if mesh.get_rank() == PAR_SH_TAMPER_RANK:
+            flat = st.ct.to_local().view(-1)
+            flat[flat.numel() // 3] ^= 1 << 7
+        state, m = fn(state, _sharded_batch(cell, mesh, PAR_SH_STEPS))
+        tamper_ok = bool(m["seal_ok"])
+        # every rank unseals the same leaves (an unseal may gather)
+        nan = [bool(torch.isnan(sealed_lib.unseal(x, cell.key)[0]
+                                .to_local()).all())
+               for x in (state.params["final_norm"],
+                         state.params["layers"]["mlp"]["w_gate"],
+                         sealed_lib.tree_leaves(state.nu)[0])]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": out, "launches": launches, "peak_bytes": peak,
+            "held_bytes": held, "whole_bytes": whole, "build_s": build_s,
+            "tamper_leaf_col_sharded": col_sharded,
+            "tamper_seal_ok": tamper_ok, "tamper_poisoned": all(nan)}
+
+
 def _par_rank(rank: int, port: int, out_dir: str, ckpt_path: str) -> None:
-    """One of the phase's two processes: EP, then the pipeline, then the
-    elastic restore; its results go to ``out_dir/rank<r>.json``.  An
-    exception ends the process with it (and fails the phase)."""
+    """One of the phase's two processes: EP, then the pipeline, the
+    elastic restore and the sharded sealed train step; its results go to
+    ``out_dir/rank<r>.json``.  An exception ends the process with it (and
+    fails the phase)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_smoke_mesh
@@ -2408,6 +2671,10 @@ def _par_rank(rank: int, port: int, out_dir: str, ckpt_path: str) -> None:
         res["pipeline"] = _pp_rank(pipe)
         dist.barrier()
         res["restore"] = _restore_rank(mesh, ckpt_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        res["sharded"] = _sharded_rank(mesh)
         Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -2450,17 +2717,17 @@ def hop_ctr_timing() -> dict:
 def parallel_phase() -> dict:
     """(h) Two processes on the one card over gloo: which gloo operations
     take CUDA tensors, the hop's CTR time, then EP (moonshot at full
-    width), the sealed pipeline (granite at full size) and the elastic
+    width), the sealed pipeline (granite at full size), the elastic
     restore of granite's sealed parameters saved here with
-    ``checkpoint.save``."""
+    ``checkpoint.save``, and granite's sealed train step on the sharded
+    state, against one step of the whole state taken here first."""
     import tempfile
 
     import torch.multiprocessing as mp
 
-    from repro_torch.core import sealed as sealed_lib
     from repro_torch.launch import steps
     from repro_torch.models import transformer as TF
-    from repro_torch.train import checkpoint
+    from repro_torch.train import checkpoint, trainer
 
     t_phase = time.perf_counter()
     probe = gloo_cuda_probe()
@@ -2471,17 +2738,33 @@ def parallel_phase() -> dict:
           f"gloo refused a collective moe_ep runs on the card: {probe}")
     hop = hop_ctr_timing()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        # granite's sealed train state (its params are the restore's
+        # checkpoint), then one step of it on the sharded case's first
+        # batch in this process, before the ranks start
         cell = steps.make_cell(PAR_PP_ARCH, "train_4k")
-        sealed = sealed_lib.seal_tree(
-            TF.init(torch.Generator(device="cuda").manual_seed(SEED),
-                    cell.cfg, "cuda"), cell.key, cell.sec.weights, 1 << 8)
+        state = trainer.seal_state(cell.opt.init(TF.init(
+            torch.Generator(device="cuda").manual_seed(SEED), cell.cfg,
+            "cuda")), cell.key, cell.sec)
+        gc.collect()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        path = checkpoint.save(tmp, 0, sealed, PAR_KEY_BYTES)
+        path = checkpoint.save(tmp, 0, state.params, PAR_KEY_BYTES)
         save_s = time.perf_counter() - t0
         ckpt_bytes = sum(st.nbytes_ct + st.tags.numel() * 4
-                         for st in _tree_paths(sealed).values())
-        del sealed
+                         for st in _tree_paths(state.params).values())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = steps.make_train_step_fn(cell, in_place=True)(
+            state, _sharded_batch(cell, None, 0))
+        one = {"loss": float(m["loss"]), "seal_ok": bool(m["seal_ok"]),
+               "grad_norm": float(m["grad_norm"]),
+               "wall_s": time.perf_counter() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        check(one["seal_ok"] and np.isfinite(one["loss"]),
+              f"the one-process step of the sharded case: {one}")
+        del state, m
         gc.collect()
         torch.cuda.empty_cache()
         ctx = mp.start_processes(_par_rank, args=(_free_port(), tmp, path),
@@ -2512,13 +2795,31 @@ def parallel_phase() -> dict:
               f"kernel {pp['launches']}")
         check(rs["equal"] and rs["step"] == 0 and rs["blocks_sharded"] > 0,
               f"rank {r['rank']}: elastic restore {rs}")
+    for r in ranks:
+        sh = r["sharded"]
+        first = sh["steps"][0]
+        check(abs(first["loss"] - one["loss"]) <= PAR_SH_LOSS_ATOL,
+              f"rank {r['rank']}: the sharded step's loss {first['loss']} "
+              f"against one process's {one['loss']}")
+        check(all(st["seal_ok"] and np.isfinite(st["loss"])
+                  and st["ctr"] > 0 and st["mac"] > 0 for st in sh["steps"]),
+              f"rank {r['rank']}: sharded steps {sh['steps']}")
+        check(sh["tamper_leaf_col_sharded"] and not sh["tamper_seal_ok"]
+              and sh["tamper_poisoned"],
+              f"rank {r['rank']}: a flipped bit on rank "
+              f"{PAR_SH_TAMPER_RANK} did not poison the state: {sh}")
+        check(0 < sh["held_bytes"] < sh["whole_bytes"],
+              f"rank {r['rank']}: holds {sh['held_bytes']} of "
+              f"{sh['whole_bytes']} sealed bytes")
+    check(len({r["sharded"]["steps"][-1]["loss"] for r in ranks}) == 1,
+          "the sharded step's ranks returned different losses")
     check(ranks[0]["pipeline"]["loss"] == ranks[1]["pipeline"]["loss"],
           "the pipeline's stages returned different losses")
     check(max(r["pipeline"]["control_grad_rel_max"] for r in ranks)
           > PAR_PP_GRAD_RTOL,
           "the pipeline's wrong-domain control passed the gradient limit")
     return {"probe": probe, "hop": hop, "ranks": ranks, "save_s": save_s,
-            "ckpt_bytes": ckpt_bytes,
+            "ckpt_bytes": ckpt_bytes, "one_process": one,
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -2843,6 +3144,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     par = parallel_phase()
     print_parallel(par, card)
+    print_sharded(par, card)
 
     # 13. report ----------------------------------------------------------
     sources = {"ctr_cipher": ("src/repro_torch/csrc/ctr_cipher.cu",
@@ -2955,6 +3257,9 @@ def main() -> int:
     by_path["parallel pipeline step"] = {
         k: sum(r["pipeline"]["launches"][k] for r in par["ranks"])
         for k in launches}
+    by_path["parallel sharded train steps"] = {
+        k: sum(r["sharded"]["launches"][k] for r in par["ranks"])
+        for k in launches}
     for arch, f in fams.items():
         by_path[f"{arch} sealed"] = f["sealed"]["launches"]
         if "fused" in f:
@@ -2980,6 +3285,21 @@ def main() -> int:
                                       "bound_by", "bytes_per_tick")},
         "workload": f"one hop's seal of a [1, {PAR_PP_SEQ}, d_model] bf16 "
                     f"activation of {PAR_PP_ARCH}; ms in a CUDA graph"}
+    for k in kernels[:2]:
+        pre = "ctr" if k["name"] == "ctr_cipher" else "mac"
+        k["sharded_train"] = {
+            "launches_per_step_per_rank": [[st[pre] for st in
+                                            r["sharded"]["steps"]]
+                                           for r in par["ranks"]],
+            "workload": f"{PAR_PP_ARCH}'s sealed train step on mesh (data 1,"
+                        f" model 2), {PAR_SH_MICRO} x 1 x {PAR_SH_SEQ} "
+                        "tokens, each rank its blocks",
+            "offset_cases": [{c: x[c] for c in ("shape", "col0",
+                                                "mismatches", "ms",
+                                                "plain_ms", "bound_ms",
+                                                "bound_by") if c in x}
+                             for x in results[k["name"]]
+                             if x["shape"].startswith("sharded")]}
     kernels[0]["crosspod"] = {
         mode: {k: xpod[mode][k] for k in ("ctr_ms", "ctr_bound_ms",
                                           "bound_by", "ctr_bytes")}

@@ -7,6 +7,7 @@
   registers  launch-descriptor MAC + nonce (Rule 3)              (copy)
   channel    SecureChannel: upload/download/launch end-to-end
   policy     NONE / CTR / TRUSTED per tensor class                (copy)
+  overhead   the paper's analytic overhead model; the H100's model  (copy)
 """
 from . import cipher, mac, policy, registers, sealed, trust
 from .channel import SecureChannel, poison_unless

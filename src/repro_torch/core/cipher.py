@@ -166,16 +166,21 @@ def uint_dtype_for(dtype):
     return _UINT_FOR_SIZE[dtype.itemsize]
 
 
-def _ctr(raw: torch.Tensor, key: torch.Tensor, nonce, rows=None):
+def _ctr(raw: torch.Tensor, key: torch.Tensor, nonce, rows=None,
+         col0: int = 0):
     """XOR unsigned bits ``raw`` ([*shape], or [N, *shape] with a [N, 2]
     key) with the shaped keystream; ``rows`` overrides the counter rows
-    (shape ``raw.shape[:-1]``)."""
+    (shape ``raw.shape[:-1]``), ``col0`` is raw's first column in them."""
     if raw.element_size() == 1:
         # byte e of a row is byte e % 4 of the row's word e // 4 (the words
         # are little-endian): XOR the rows padded to whole words
+        if col0 % 4:
+            raise ValueError(f"a byte lattice's col0 must be a whole word, "
+                             f"got {col0}")
         e = raw.shape[-1]
         wide = F.pad(raw, (0, (-e) % 4)).contiguous().view(torch.int32)
-        return _ctr(wide, key, nonce, rows).view(raw.dtype)[..., :e]
+        return _ctr(wide, key, nonce, rows, col0 // 4).view(
+            raw.dtype)[..., :e]
     keys, nonces, batched = _items(key, nonce)
     n = keys.shape[0]
     tkeys = derive_tensor_key(keys, nonces)
@@ -183,7 +188,7 @@ def _ctr(raw: torch.Tensor, key: torch.Tensor, nonce, rows=None):
     x3 = raw.reshape(n, -1, e)
     rows3 = (common.i32(u32_of(rows, raw.device)).reshape(n, -1).contiguous()
              if rows is not None else None)
-    return ctr_ops.ctr_xor(x3, tkeys, rows3).reshape(raw.shape)
+    return ctr_ops.ctr_xor(x3, tkeys, rows3, col0).reshape(raw.shape)
 
 
 def keystream_like(key: torch.Tensor, nonce, shape, dtype) -> torch.Tensor:
@@ -204,9 +209,12 @@ def keystream_for_rows(key: torch.Tensor, nonce, rows: torch.Tensor,
 
 
 def seal_bits_slice(x: torch.Tensor, key: torch.Tensor, nonce,
-                    rows: torch.Tensor) -> torch.Tensor:
-    """Seal a row-slice (x: rows.shape + (last,)) against full-tensor counters."""
-    return _ctr(x.contiguous().view(uint_dtype_for(x.dtype)), key, nonce, rows)
+                    rows: torch.Tensor, col0: int = 0) -> torch.Tensor:
+    """Seal a row-slice (x: rows.shape + (last,)) against full-tensor
+    counters; ``col0``: x's first column in the full rows (a block of a
+    tensor sharded on its last axis).  XOR, so it also unseals."""
+    return _ctr(x.contiguous().view(uint_dtype_for(x.dtype)), key, nonce,
+                rows, col0)
 
 
 def seal_bits(x: torch.Tensor, key: torch.Tensor, nonce) -> torch.Tensor:

@@ -93,6 +93,23 @@ def tag_root(words: torch.Tensor, key: torch.Tensor, chunk_words: int,
     return root
 
 
+def reposition(tags: torch.Tensor, k0: torch.Tensor, idx_from: torch.Tensor,
+               idx_to: torch.Tensor) -> torch.Tensor:
+    """Chunk tags taken at chunk positions ``idx_from`` (int64, broadcast
+    against ``tags``) as the tags of the same chunks at ``idx_to``: a tag
+    is its chunk's sum plus ``(pos(idx) + 1) * k0`` mod p, so the position
+    term is swapped.  ``k0``: the chunk keys' first word.  Lets a rank tag
+    its block of a sharded tensor at the block's place in the whole one."""
+    k = common.u32(k0)
+
+    def term(idx):
+        pos = common.canon(common.mul_u32(idx & common.M32, common.POS_MIX))
+        return (pos + 1) * k % common.P31
+
+    t = common.u32(tags) - term(idx_from) + term(idx_to)
+    return common.i32(torch.remainder(t, common.P31))
+
+
 def chunk_count(last_w: int, chunk_words: int) -> int:
     """Smallest chunk count >= words/chunk_words that divides the words."""
     n = -(-last_w // chunk_words)

@@ -10,15 +10,29 @@ Trees are nested dicts (and lists/tuples) of tensors.  Their leaves are
 walked in sorted-key order, the order of ``jax.tree_util`` flattening, so
 leaf ``i`` of a tree gets the same nonce ``base + 131 * i`` as in the
 reference and every weight ciphertext is bit-identical to it.
+
+A leaf may be a DTensor (``parallel/sharding.py``): each rank then seals,
+verifies and unseals only its own block, and the block's bits are the
+same block of the one-process ciphertext.  Its counter rows are the
+block's rows in the whole tensor and its columns start at the block's
+column offset (``Block``).  Tags chunk whole rows, so a leaf sharded on
+its last axis holds them on every rank of the row block (its tags drop
+that axis's sharding); ``tags_of`` takes them from the rank's own chunks
+or, where a chunk straddles two ranks, from the row block's ciphertext
+gathered whole.  Only tags and ciphertext cross (``gather_block``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels import common
+from ..kernels.tree_mac import ops as mac_ops
 from . import cipher, mac
 from .policy import Protection, SealedSpec
 
@@ -60,10 +74,159 @@ class SealedTensor:
         return self.tags.numel() * 4 + 4
 
 
+# ---------------------------------------------------------------------------
+# a rank's block of a DTensor leaf
+# ---------------------------------------------------------------------------
+
+def block_of(shape, mesh, placements, coord) -> tuple[list, list]:
+    """(offsets, sizes) of the block that the rank at mesh coordinate
+    ``coord`` holds of a tensor of ``shape``.  The placements split evenly
+    (``sharding.fit_placements``); a tensor dim over several mesh dims is
+    split in the mesh's order, major first, as DTensor does."""
+    offs, sizes = [0] * len(shape), list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            sizes[p.dim] //= mesh.size(i)
+            offs[p.dim] += coord[i] * sizes[p.dim]
+    return offs, sizes
+
+
+def wrap(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """A rank's block as a DTensor of the (contiguous) global ``shape``."""
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(local, mesh, tuple(placements), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def gather_block(x: DTensor, dims) -> torch.Tensor:
+    """This rank's block of ``x`` with the tensor dims ``dims`` whole: the
+    blocks along them, from the ranks that hold them, in one all_gather of
+    the blocks' bytes over the mesh's ranks (the whole process group).
+    No collective when no mesh dim of more than one rank splits ``dims``."""
+    mesh, pl, shape = x.device_mesh, x.placements, tuple(x.shape)
+    local = x.to_local()
+    dims = {d % len(shape) for d in dims}
+    if not any(isinstance(p, Shard) and p.dim in dims and mesh.size(i) > 1
+               for i, p in enumerate(pl)):
+        return local
+    world = dist.get_world_size()
+    if mesh.size() != world:
+        raise ValueError(f"the mesh holds {mesh.size()} of the group's "
+                         f"{world} ranks")
+    flat = local.contiguous().reshape(-1).view(torch.uint8)
+    got = torch.empty(world * flat.numel(), dtype=torch.uint8,
+                      device=local.device)
+    dist.all_gather_into_tensor(got, flat)
+    got = got.view(local.dtype).reshape(world, *local.shape)
+    mine, _ = block_of(shape, mesh, pl, mesh.get_coordinate())
+    out_shape = [shape[d] if d in dims else local.shape[d]
+                 for d in range(len(shape))]
+    out = torch.empty(out_shape, dtype=local.dtype, device=local.device)
+    ranks = mesh.mesh
+    for r in range(world):
+        coord = [int(c) for c in (ranks == r).nonzero()[0]]
+        offs, sizes = block_of(shape, mesh, pl, coord)
+        if all(offs[d] == mine[d] for d in range(len(shape)) if d not in dims):
+            out[tuple(slice(o, o + n) if d in dims else slice(None)
+                      for d, (o, n) in enumerate(zip(offs, sizes)))] = got[r]
+    return out
+
+
+class Block:
+    """A DTensor leaf's block on this rank: its place in the counter
+    lattice (its rows' global row ids, its first column)."""
+
+    def __init__(self, x: DTensor):
+        self.mesh, self.placements = x.device_mesh, tuple(x.placements)
+        self.shape = tuple(x.shape)
+        offs, sizes = block_of(self.shape, self.mesh, self.placements,
+                               self.mesh.get_coordinate())
+        rows = torch.zeros((), dtype=torch.int64)
+        for d in range(len(self.shape) - 1):
+            rows = rows[..., None] * self.shape[d] + torch.arange(
+                offs[d], offs[d] + sizes[d])
+        self.col0 = offs[-1]
+        self.rows = rows.reshape(-1).to(x.to_local().device)    # int64
+
+    def tags_placements(self) -> tuple:
+        """The tags' placements: the leaf's, its last axis unsplit."""
+        last = len(self.shape) - 1
+        return tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                     else p for p in self.placements)
+
+    def xor(self, bits: torch.Tensor, key, nonce) -> torch.Tensor:
+        """CTR over the block's bits against its global rows and first
+        column (seal and unseal alike)."""
+        b2 = bits.reshape(-1, bits.shape[-1])
+        return cipher.seal_bits_slice(b2, key, nonce, self.rows,
+                                      self.col0).reshape(bits.shape)
+
+    def wrap(self, local: torch.Tensor) -> DTensor:
+        """``local`` as this block of a DTensor of the leaf's shape."""
+        return wrap(local, self.mesh, self.placements, self.shape)
+
+
+def tags_of(ct, key: torch.Tensor, nonce: int, spec: SealedSpec):
+    """The chunk tags of a sealed leaf's ciphertext.
+
+    A DTensor gives the tags of this rank's row block, over whole rows, as
+    a DTensor of the tags' placements.  Where the block's columns are
+    whole chunks of the row (the shard boundary falls on a chunk's), the
+    rank tags its own chunks and the ranks of the row block all-gather the
+    tags; else they all-gather the row block's ciphertext and each tags
+    the whole rows.  Either way one kernel launch takes the lattice, and
+    ``mac.reposition`` moves its tags to the chunks' global positions."""
+    mk = mac.nonce_mac_key(key, nonce, spec.mac_domain)
+    if not isinstance(ct, DTensor):
+        return mac.block_tags(ct, mk, spec.chunk_words, spec.mac_domain)
+    blk = Block(ct)
+    local = ct.to_local()
+    size = local.element_size()
+    last_w = -(-blk.shape[-1] * size // 4)
+    nc = mac.chunk_count(last_w, spec.chunk_words)
+    chunk = 4 * (last_w // nc)                      # bytes a chunk
+    own = (blk.col0 * size) % chunk == 0 \
+        and (local.shape[-1] * size) % chunk == 0
+    lat = local if own else gather_block(ct, (-1,))
+    c0 = blk.col0 * size // chunk if own else 0
+    keys = mac.mac_keys(mk, chunk // 4, spec.mac_domain)
+    tags = mac_ops.mac_tags(lat.reshape(1, -1, lat.shape[-1]).contiguous(),
+                            keys[None])[0]
+    n = tags.shape[-1]
+    cols = torch.arange(n, device=tags.device)
+    here = torch.arange(tags.shape[0], device=tags.device)[:, None] * n
+    tags = mac.reposition(tags, keys[0], here + cols,
+                          blk.rows[:, None] * nc + c0 + cols)
+    tags = tags.reshape(*local.shape[:-1], n)
+    whole = blk.shape[:-1] + (nc,)
+    if n < nc:                        # this rank's chunks of each row
+        tags = gather_block(wrap(tags, blk.mesh, blk.placements, whole),
+                            (-1,))
+    return wrap(tags, blk.mesh, blk.tags_placements(), whole)
+
+
+def verify(st: "SealedTensor", key: torch.Tensor) -> torch.Tensor:
+    """The chunk tags of ``st`` check out (no decryption): a bool tensor on
+    the device; for a DTensor leaf, those of this rank's row block."""
+    st.check_live()
+    if not st.spec.protection.authenticates:
+        return torch.ones((), dtype=torch.bool, device=_local(st.ct).device)
+    got = tags_of(st.ct, key, st.nonce, st.spec)
+    return (_local(got) == _local(st.tags)).all()
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def seal(x: torch.Tensor, key: torch.Tensor, nonce: int,
          spec: SealedSpec) -> SealedTensor:
-    """Seal a tensor: CTR-encrypt + per-chunk MAC over the *ciphertext*."""
+    """Seal a tensor: CTR-encrypt + per-chunk MAC over the *ciphertext*.
+    A DTensor is sealed block by block: each rank encrypts its own."""
     nonce = int(nonce) & common.M32
+    if isinstance(x, DTensor):
+        return _seal_block(x, key, nonce, spec)
     empty = torch.zeros((0,), dtype=torch.int32, device=x.device)
     if spec.protection is Protection.NONE:
         ct = x.contiguous().view(cipher.uint_dtype_for(x.dtype))
@@ -76,6 +239,20 @@ def seal(x: torch.Tensor, key: torch.Tensor, nonce: int,
         tags = mac.block_tags(ct, mac.nonce_mac_key(key, nonce,
                                                     spec.mac_domain),
                               spec.chunk_words, spec.mac_domain)
+    return SealedTensor(ct, tags, nonce, x.dtype, spec)
+
+
+def _seal_block(x: DTensor, key, nonce: int, spec: SealedSpec):
+    if x.dim() == 0:
+        raise ValueError("a DTensor leaf to seal has at least one dim")
+    blk, local = Block(x), x.to_local()
+    bits = local.contiguous().view(cipher.uint_dtype_for(local.dtype))
+    if spec.protection is not Protection.NONE:
+        bits = blk.xor(bits, key, nonce)
+    ct = blk.wrap(bits)
+    tags = torch.zeros((0,), dtype=torch.int32, device=local.device)
+    if spec.protection.authenticates:
+        tags = tags_of(ct, key, nonce, spec)
     return SealedTensor(ct, tags, nonce, x.dtype, spec)
 
 
@@ -96,15 +273,19 @@ def _abstract_seal(x: torch.Tensor, nonce: int,
 
 def unseal(st: SealedTensor, key: torch.Tensor):
     """Verify chunk tags, decrypt.  Returns (tensor, ok) with ``ok`` a bool
-    tensor on the device: callers gate outputs on it rather than branch."""
-    st.check_live()
-    ok = torch.ones((), dtype=torch.bool, device=st.ct.device)
-    if st.spec.protection is Protection.NONE:
+    tensor on the device: callers gate outputs on it rather than branch.
+    A DTensor leaf gives this rank's plaintext block as a DTensor of the
+    same placements, and the verdict on its row block only (the caller
+    takes the AND over the ranks)."""
+    ok = verify(st, key)
+    encrypted = st.spec.protection is not Protection.NONE
+    if isinstance(st.ct, DTensor):
+        blk, bits = Block(st.ct), st.ct.to_local()
+        if encrypted:
+            bits = blk.xor(bits, key, st.nonce)
+        return blk.wrap(bits.view(st.dtype)), ok
+    if not encrypted:
         return st.ct.view(st.dtype), ok
-    if st.spec.protection.authenticates:
-        mk = mac.nonce_mac_key(key, st.nonce, st.spec.mac_domain)
-        ok = mac.verify_block_tags(st.ct, mk, st.spec.chunk_words, st.tags,
-                                   st.spec.mac_domain).all()
     return cipher.unseal_bits(st.ct, key, st.nonce, st.dtype), ok
 
 

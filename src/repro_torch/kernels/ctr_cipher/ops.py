@@ -19,19 +19,22 @@ def _launcher():
     fn = build.library("ctr_cipher").ctr_xor_launch
     if fn.argtypes is None:
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [vp, vp, vp, vp, i64, i64, i64, ctypes.c_int, vp]
+        fn.argtypes = [vp, vp, vp, vp, i64, i64, i64, ctypes.c_int, i64,
+                       vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def ctr_xor(x: torch.Tensor, tkeys: torch.Tensor,
-            rows: torch.Tensor | None = None) -> torch.Tensor:
+            rows: torch.Tensor | None = None, col0: int = 0) -> torch.Tensor:
     """Seal/unseal N word lattices at once.
 
     x: int16 or int32 [N, R, E] (the bits of uint16/uint32 ciphertext or
     plaintext); tkeys: int32 [N, 2] per-item tensor keys; rows: optional
-    int32 [N, R] counter-row ids (default: row r is r).  Returns a new
-    tensor of x's shape and dtype.
+    int32 [N, R] counter-row ids (default: row r is r); col0: the index of
+    x's first column in its counter rows (a block of a tensor sharded on
+    its last axis), so column e takes the keystream of column col0 + e.
+    Returns a new tensor of x's shape and dtype.
     """
     if x.dim() != 3 or x.dtype not in (torch.int16, torch.int32):
         raise ValueError(f"ctr_xor takes int16/int32 [N, R, E], got "
@@ -43,11 +46,13 @@ def ctr_xor(x: torch.Tensor, tkeys: torch.Tensor,
     if rows is not None and (tuple(rows.shape) != (N, R)
                              or rows.dtype != torch.int32):
         raise ValueError(f"rows must be int32 [{N}, {R}]")
+    if col0 < 0:
+        raise ValueError(f"col0 must be >= 0, got {col0}")
     for t in (tkeys, rows):
         if t is not None and t.device != x.device:
             raise ValueError("ctr_xor operands must share one device")
     if x.device.type == "cpu":
-        return ctr_xor_ref(x, tkeys, rows)
+        return ctr_xor_ref(x, tkeys, rows, col0)
     if x.device.type != "cuda":
         raise ValueError(f"ctr_xor runs on cpu or cuda, not {x.device}")
     if N > MAX_ITEMS:
@@ -64,7 +69,7 @@ def ctr_xor(x: torch.Tensor, tkeys: torch.Tensor,
         err = _launcher()(
             x.data_ptr(), out.data_ptr(), tkeys.data_ptr(),
             rows.data_ptr() if rows is not None else None, N, R, E,
-            x.element_size(), torch.cuda.current_stream().cuda_stream)
+            x.element_size(), col0, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ctr_xor kernel launch failed: cudaError {err}")
     ctr_xor.launches += 1

@@ -37,6 +37,7 @@ plaintext or key material.
 """
 from __future__ import annotations
 
+from ..core.overhead import H100
 from .metrics import MetricsRegistry
 
 # engine phases the profiler/ledger attribute to (docs/OBSERVABILITY.md):
@@ -67,6 +68,17 @@ def cipher_blocks_for(n_bytes: int) -> int:
 def mac_ops_for(n_bytes: int, chunk_words: int) -> int:
     words = -(-int(n_bytes) // 4)
     return -(-words // max(1, int(chunk_words)))
+
+
+def priced_by(model=None, clock_hz: float | None = None) -> tuple:
+    """(model, clock in Hz) that price sealed bytes: the card's model and
+    its clock unless the caller names others."""
+    model = H100 if model is None else model
+    clock_hz = clock_hz or getattr(model, "clock_hz", None)
+    if not clock_hz:
+        raise ValueError(f"{getattr(model, 'name', model)!r} has no clock: "
+                         "pass clock_hz")
+    return model, clock_hz
 
 
 class CostLedger:
@@ -162,15 +174,18 @@ class CostLedger:
                 agg[c] += cols[c]
         return out
 
-    def reconcile(self, model, clock_hz: float = 940e6) -> list[dict]:
+    def reconcile(self, model=None,
+                  clock_hz: float | None = None) -> list[dict]:
         """Drift report: measured wall time vs the analytic model.
 
-        ``model`` has a ``crypto_cycles(n_bytes)`` method; that
-        term (CTR throughput + pipeline fill + MAC chunk tags) prices the
-        bytes each phase charged, converted to us at ``clock_hz``.  Rows
-        with no bytes (host-copy phases, umbrella spans) predict 0 and
-        report ratio None.
+        ``model`` has a ``crypto_cycles(n_bytes)`` method (default: the
+        card's, ``core.overhead.H100``); that term (CTR throughput +
+        pipeline fill + MAC chunk tags) prices the bytes each phase
+        charged, converted to us at ``clock_hz`` (default: the model's
+        own ``clock_hz``).  Rows with no bytes (host-copy phases, umbrella
+        spans) predict 0 and report ratio None.
         """
+        model, clock_hz = priced_by(model, clock_hz)
         out = []
         order = {p: i for i, p in enumerate(PHASES)}
         totals = self.phase_totals()

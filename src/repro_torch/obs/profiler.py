@@ -45,7 +45,7 @@ from contextlib import contextmanager
 
 import torch
 
-from .costs import CostLedger
+from .costs import CostLedger, priced_by
 from .metrics import MetricsRegistry
 from .trace import TID_ENGINE
 
@@ -187,14 +187,15 @@ class Profiler:
         return sum(d for _, d in samples) / len(samples)
 
     # -- reporting -------------------------------------------------------
-    def report(self, model, clock_hz: float = 940e6) -> dict:
+    def report(self, model=None, clock_hz: float | None = None) -> dict:
         """Profile document: per-phase columns and the drift table.
 
         ``model`` prices sealed bytes for the predicted-vs-measured drift
-        table (an object with ``crypto_cycles(n_bytes)``, as the
-        reference's analytic accelerator model; the port has none of its
-        own yet, so the caller supplies it).
+        table (an object with ``crypto_cycles(n_bytes)``; default the
+        card's analytic model, ``core.overhead.H100``), at ``clock_hz``
+        (default the model's own clock).
         """
+        model, clock_hz = priced_by(model, clock_hz)
         return {
             "benchmark": "profile",
             "model": getattr(model, "name", str(model)),

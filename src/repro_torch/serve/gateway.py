@@ -382,9 +382,11 @@ class SecureGateway:
         """Prometheus text exposition of the whole registry."""
         return self.registry.to_prometheus()
 
-    def profile_report(self, model, clock_hz: float = 940e6) -> dict:
+    def profile_report(self, model=None,
+                       clock_hz: float | None = None) -> dict:
         """Per-phase cost attribution + predicted-vs-measured drift table
-        for the current window, against an analytic cost ``model``."""
+        for the current window, against an analytic cost ``model`` (the
+        card's, ``core.overhead.H100``, by default)."""
         return self.profiler.report(model=model, clock_hz=clock_hz)
 
     # -- trace + audit export --------------------------------------------

@@ -28,15 +28,33 @@ the state passed in intact.
 The batch may itself arrive sealed (Rule 1 ingestion); gradient cross-pod
 reduction goes through ``grad_hook`` (``parallel.collectives``), which seals
 the payloads crossing the pod trust boundary.
+
+A sharded state (``launch/steps.py::train_state_shardings``: every ct and
+tags a DTensor holding this rank's block, e.g. from ``elastic_restore``)
+takes the same step on every rank of the mesh, FSDP-style: each rank
+verifies and decrypts its own blocks (``core/sealed.py``), the plaintext
+blocks are all-gathered into whole parameters for the unchanged model
+code, and the rank runs its share of the batch (a DTensor batch leaf: its
+local block).  The loss is averaged over the ranks, and each f32 gradient
+mean over the mesh dims the batch is split on and those along which its
+leaf is replicated (``_grad_dims``), so every rank holds the whole mean
+gradient; the clip takes its global norm from them, each leaf once.  The
+update then runs on the rank's own block, against the block's global CTR
+counters, and the new tags cover the row block's whole rows
+(``core/sealed.py::tags_of``).  The verdict is the AND over the ranks:
+one bad tag anywhere poisons the new state on all of them.
 """
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
-from ..core import cipher, mac
+from ..core import cipher
 from ..core import sealed as sealed_lib
 from ..core.channel import poison_unless
 from ..core.policy import Protection, SecurityConfig
@@ -115,32 +133,29 @@ def _microbatches(batch_stack):
     return list(batch_stack)
 
 
-def _verified(st: sealed_lib.SealedTensor, key) -> torch.Tensor:
-    """The chunk tags of ``st`` check out (no decryption)."""
-    st.check_live()
-    if not st.spec.protection.authenticates:
-        return torch.ones((), dtype=torch.bool, device=st.ct.device)
-    mk = mac.nonce_mac_key(key, st.nonce, st.spec.mac_domain)
-    return mac.verify_block_tags(st.ct, mk, st.spec.chunk_words, st.tags,
-                                 st.spec.mac_domain).all()
-
-
 class _Lattice:
-    """A sealed leaf's ciphertext as its [rows, last] counter lattice, with
-    the tensor key of one nonce: decrypt / encrypt any row slice."""
+    """A sealed leaf's ciphertext (this rank's block of a DTensor) as its
+    [rows, last] counter lattice, with the tensor key of one nonce:
+    decrypt / encrypt any row slice against its global counters."""
 
-    def __init__(self, ct: torch.Tensor, key, nonce: int, spec):
-        self.ct2 = ct.reshape(-1, ct.shape[-1])
+    def __init__(self, ct, key, nonce: int, spec, blk=None):
+        local = ct.to_local() if isinstance(ct, DTensor) else ct
+        self.ct2 = local.reshape(-1, local.shape[-1])
         self.plain = spec.protection is Protection.NONE
         self.tkey = (None if self.plain
                      else cipher.derive_tensor_key(key, nonce)[None])
+        self.blk = blk
 
     def xor(self, bits: torch.Tensor, r0: int) -> torch.Tensor:
         if self.plain:
             return bits
-        rows = torch.arange(r0, r0 + bits.shape[0], dtype=torch.int32,
-                            device=bits.device)[None]
-        return ctr_ops.ctr_xor(bits[None], self.tkey, rows)[0]
+        r1 = r0 + bits.shape[0]
+        if self.blk is None:
+            rows, col0 = torch.arange(r0, r1, dtype=torch.int32,
+                                      device=bits.device), 0
+        else:
+            rows, col0 = self.blk.rows[r0:r1].int(), self.blk.col0
+        return ctr_ops.ctr_xor(bits[None], self.tkey, rows[None], col0)[0]
 
 
 def _reseal_update(opt: AdamW, key, ok, lr, c1, c2, scale, p, g,
@@ -154,10 +169,12 @@ def _reseal_update(opt: AdamW, key, ok, lr, c1, c2, scale, p, g,
     if in_place:
         for st in olds:
             st.consumed = True
+    blk = (sealed_lib.Block(sp.ct) if isinstance(sp.ct, DTensor)
+           else None)
     nonces = [(st.nonce + 1) & common.M32 for st in olds]
-    outs = [st.ct if in_place else torch.empty_like(st.ct) for st in olds]
-    read = [_Lattice(st.ct, key, st.nonce, st.spec) for st in (sm, sv)]
-    write = [_Lattice(o, key, n, st.spec)
+    outs = [st.ct if in_place else _like(st.ct) for st in olds]
+    read = [_Lattice(st.ct, key, st.nonce, st.spec, blk) for st in (sm, sv)]
+    write = [_Lattice(o, key, n, st.spec, blk)
              for o, n, st in zip(outs, nonces, olds)]
     decay = p.dim() >= 2
     last = p.shape[-1] if p.dim() else 1
@@ -177,11 +194,79 @@ def _reseal_update(opt: AdamW, key, ok, lr, c1, c2, scale, p, g,
     for o, n, st in zip(outs, nonces, olds):
         tags = st.tags
         if st.spec.protection.authenticates:
-            tags = mac.block_tags(o, mac.nonce_mac_key(key, n,
-                                                       st.spec.mac_domain),
-                                  st.spec.chunk_words, st.spec.mac_domain)
+            tags = sealed_lib.tags_of(o, key, n, st.spec)
         out.append(sealed_lib.SealedTensor(o, tags, n, st.dtype, st.spec))
     return out
+
+
+def _summed_into(acc: torch.Tensor):
+    """A post-accumulate hook that adds a leaf's gradient into ``acc`` and
+    drops it, so a backward pass never holds every gradient at once.  The
+    gradient takes the accumulator's dtype first (an f32 accumulator adds
+    it as it is: the widening is exact, and no f32 copy is made)."""
+    def hook(p: torch.Tensor) -> None:
+        g = p.grad
+        acc.add_(g if acc.dtype == torch.float32 else g.to(acc.dtype))
+        p.grad = None
+    return hook
+
+
+def _like(ct):
+    """A new buffer for a leaf's ciphertext (a DTensor: for this rank's
+    block, in the same placements)."""
+    if not isinstance(ct, DTensor):
+        return torch.empty_like(ct)
+    return sealed_lib.Block(ct).wrap(torch.empty_like(ct.to_local()))
+
+
+def _whole(x):
+    """A DTensor's whole tensor on every rank (its plaintext blocks
+    all-gathered, FSDP-style); a tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return sealed_lib.gather_block(x, range(x.dim()))
+
+
+def _block(whole: torch.Tensor, like) -> torch.Tensor:
+    """This rank's block of ``whole``, in ``like``'s (a DTensor's)
+    placements; a tensor as it is."""
+    if not isinstance(like, DTensor):
+        return whole
+    mesh = like.device_mesh
+    offs, sizes = sealed_lib.block_of(tuple(like.shape), mesh,
+                                      like.placements, mesh.get_coordinate())
+    return whole[tuple(slice(o, o + n) for o, n in zip(offs, sizes))]
+
+
+def _mean_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The f32 mean of ``x`` over the ranks along the mesh dims ``dims``
+    (all_reduce writes in place)."""
+    x = x.float().contiguous()
+    for i in dims:
+        dist.all_reduce(x, group=mesh.get_group(i))
+    return x.div_(math.prod(mesh.size(i) for i in dims))
+
+
+def _grad_dims(like: DTensor, split: set) -> list:
+    """The mesh dims over which a leaf's gradient is averaged: those the
+    batch is split on (each rank has a share of it) and those along which
+    the leaf's block is replicated (its holders keep equal copies).  Along
+    the others a rank's whole gradient is its neighbours', and it keeps
+    only its own block of it."""
+    mesh = like.device_mesh
+    return [i for i, p in enumerate(like.placements) if mesh.size(i) > 1
+            and (i in split or not isinstance(p, Shard))]
+
+
+def _local_batch(batch_stack):
+    """(A batch's DTensor leaves as this rank's blocks (its share), the
+    mesh dims they are split on)."""
+    if not isinstance(batch_stack, dict):
+        return batch_stack, set()
+    split = {i for v in batch_stack.values() if isinstance(v, DTensor)
+             for i, p in enumerate(v.placements) if isinstance(p, Shard)}
+    return {k: v.to_local() if isinstance(v, DTensor) else v
+            for k, v in batch_stack.items()}, split
 
 
 def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
@@ -217,34 +302,52 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
             params = state.params
             ok = torch.ones((), dtype=torch.bool,
                             device=state.step.device)
-        leaves = [p.detach().requires_grad_(True)
+        sharded = any(isinstance(p, DTensor)
+                      for p in sealed_lib.tree_leaves(params))
+        if sharded and not sealed_mode:
+            raise ValueError("a sharded state takes the sealed step")
+        if sharded:
+            batch_stack, split = _local_batch(batch_stack)
+            sps = sealed_lib.tree_leaves(state.params)
+            mesh = sps[0].ct.device_mesh
+        leaves = [_whole(p).detach().requires_grad_(True)
                   for p in sealed_lib.tree_leaves(params)]
-        ptree = sealed_lib.tree_unflatten(params, leaves)
+        del params
+        ptree = sealed_lib.tree_unflatten(state.params, leaves)
         acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                for p in leaves]
+        hooks = [p.register_post_accumulate_grad_hook(_summed_into(a))
+                 for p, a in zip(leaves, acc)]
         l_sum = torch.zeros((), dtype=torch.float32, device=ok.device)
         mbs = _microbatches(batch_stack)
         for mb in mbs:
             l = loss_fn(ptree, mb)
-            for a, g in zip(acc, torch.autograd.grad(l, leaves)):
-                a.add_(g.to(acc_dt))
+            l.backward()
             l_sum = l_sum + l.detach()
+        for h in hooks:                  # the hooks hold the accumulators
+            h.remove()
+        del l, hooks
         n = len(mbs)
         loss = l_sum / n
-        # the mean over microbatches in f32, the hook, then the parameter
-        # dtype (the reference's order); leaf by leaf without a hook
+        if sharded:
+            loss = _mean_over(loss, mesh, range(mesh.ndim))
+        # the mean over microbatches in f32 (and over the ranks), the hook,
+        # then the parameter dtype (the reference's order); leaf by leaf
+        # without a hook
         grads = []
         for i, p in enumerate(leaves):
             a, acc[i] = acc[i], None
             g = a.div_(n) if a.dtype == torch.float32 else a.float() / n
+            if sharded:
+                g = _mean_over(g, mesh, _grad_dims(sps[i].ct, split))
             grads.append(g if grad_hook is not None else g.to(p.dtype))
         if grad_hook is not None:
             grads = sealed_lib.tree_leaves(grad_hook(
-                sealed_lib.tree_unflatten(params, grads), state.step))
+                sealed_lib.tree_unflatten(state.params, grads), state.step))
             for i, p in enumerate(leaves):
                 grads[i] = grads[i].to(p.dtype)
         leaves = [p.detach() for p in leaves]
-        del ptree, params
+        del ptree
 
         if not sealed_mode:
             plain = TrainState(step=state.step, params=state.params,
@@ -257,17 +360,30 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
         mus = sealed_lib.tree_leaves(state.mu)
         nus = sealed_lib.tree_leaves(state.nu)
         # every tag of the moments checks out before anything is written
-        ok = torch.stack([ok] + [_verified(st, key) for st in mus + nus]).all()
-        step, lr, c1, c2 = opt.scalars(state.step)
+        ok = torch.stack([ok] + [sealed_lib.verify(st, key)
+                                 for st in mus + nus]).all()
+        step0 = state.step
+        if isinstance(step0, DTensor):
+            step0 = step0.to_local()
+        if sharded:                      # the AND over the ranks
+            bad = (~ok).to(torch.int32)
+            dist.all_reduce(bad)
+            ok = bad == 0
+        step, lr, c1, c2 = opt.scalars(step0)
         scale, gnorm = opt.clip(grads)
         new = [[], [], []]
-        for i, (sp, sm, sv) in enumerate(zip(
-                sealed_lib.tree_leaves(state.params), mus, nus)):
-            for acc_tree, st in zip(new, _reseal_update(
-                    opt, key, ok, lr, c1, c2, scale, leaves[i], grads[i],
-                    sp, sm, sv, in_place)):
-                acc_tree.append(st)
+        sps = sealed_lib.tree_leaves(state.params)
+        for i, (sp, sm, sv) in enumerate(zip(sps, mus, nus)):
+            p, g = (_block(x, sp.ct) for x in (leaves[i], grads[i]))
             leaves[i] = grads[i] = None
+            for acc_tree, st in zip(new, _reseal_update(
+                    opt, key, ok, lr, c1, c2, scale, p, g, sp, sm, sv,
+                    in_place)):
+                acc_tree.append(st)
+            p = g = None
+        if isinstance(state.step, DTensor):
+            step = sealed_lib.wrap(step, state.step.device_mesh,
+                                   state.step.placements, ())
         new_state = TrainState(
             step=step,
             params=sealed_lib.tree_unflatten(state.params, new[0]),

@@ -29,7 +29,9 @@ SLICE_MODULES = (
     "repro_torch.launch.steps", "repro_torch.parallel.compress",
     "repro_torch.parallel.collectives", "repro_torch.configs.llama3_405b",
     "repro_torch.launch.mesh", "repro_torch.parallel.sharding",
-    "repro_torch.parallel.pipeline", "repro_torch.models.moe_ep")
+    "repro_torch.parallel.pipeline", "repro_torch.models.moe_ep",
+    "repro_torch.core.overhead", "repro_torch.accel.vta_sim",
+    "repro_torch.accel.workloads")
 
 PROBE = """
 import pkgutil, sys
