@@ -117,7 +117,19 @@ From the root of a checkout:  python3 chip_smoke.py
    block of a column-sharded leaf that poisons the state on both ranks;
    the kernel checks above hold the CTR kernel's column offset (col0 4096
    and col0 3) against its plain version, and the MAC of a block's own
-   chunks, repositioned, against the whole rows' tags;
+   chunks, repositioned, against the whole rows' tags; then granite's
+   sealed parameters sharded over that mesh (``params_shardings``, each
+   rank sealing its own blocks) serve 4 prompts of 2048 tokens into a
+   4096-slot sealed cache and 16 greedy decode steps through
+   ``make_prefill_fn`` / ``make_decode_fn``: tokens equal to one
+   process's serving of the same parameters and prompts on the card
+   (taken after the ranks end), rank 0's cache block (the prompts'
+   slots) unchanged by the decode steps and rank 1's changed, and a
+   flipped bit in rank 1's block of a parameter leaf giving NaN logits on
+   both ranks; and the dry run (``launch/dryrun.py``, a process of its
+   own on the host, a fake group of 2 on the meta device) of the serving
+   prefill, decode step and the sharded train step gives the gloo calls
+   and bytes and the CTR and MAC launches the card counted in every call;
 12. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -236,6 +248,17 @@ PAR_PP_LOSS_RTOL, PAR_PP_GRAD_RTOL = 1e-4, 1e-2
 PAR_SH_MICRO, PAR_SH_SEQ, PAR_SH_STEPS = 2, 1024, 3
 PAR_SH_LOSS_ATOL = 1e-3
 PAR_SH_TAMPER_RANK, PAR_SH_TAMPER_LEAF = 1, ("layers", "mlp", "w_gate")
+# the sharded sealed serving step: granite at full width and depth on
+# make_smoke_mesh(2), its sealed parameters sharded by params_shardings and
+# each rank sealing its own blocks; four prompts of 2048 tokens prefilled
+# into a 4096-slot sealed cache (prefill_32k's 32 x 32768 and decode_32k's
+# 128 x 32768 cut to 4 x 4096), then 16 greedy decode steps: rank 0 holds
+# the prompts' slots of the cache, rank 1 the decode writes.  Its tokens
+# are held against one process's serving of the same parameters and
+# prompts on the card, and its collectives and launches against the dry
+# run's count of the same cells (launch/dryrun.py)
+PAR_SV_BATCH, PAR_SV_PROMPT, PAR_SV_SLOTS, PAR_SV_STEPS = 4, 2048, 4096, 16
+PAR_SV_TAMPER_RANK = 1
 PAR_KEY_BYTES = b"chip-smoke-elastic-restore"
 PAR_TIMEOUT_S = 600
 GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor",
@@ -1957,6 +1980,21 @@ def sharded_reduced() -> dict:
             "microbatch": [TRAIN_4K.microbatch, 1]}
 
 
+def sharded_serve_reduced() -> dict:
+    """The sharded serving cells' cuts: {shape: {what: [published,
+    run]}}."""
+    from repro_torch.models.config import DECODE_32K, PREFILL_32K
+
+    return {"prefill_32k": {"seq_len": [PREFILL_32K.seq_len, PAR_SV_SLOTS],
+                            "prompt_len": [PREFILL_32K.seq_len,
+                                           PAR_SV_PROMPT],
+                            "global_batch": [PREFILL_32K.global_batch,
+                                             PAR_SV_BATCH]},
+            "decode_32k": {"seq_len": [DECODE_32K.seq_len, PAR_SV_SLOTS],
+                           "global_batch": [DECODE_32K.global_batch,
+                                            PAR_SV_BATCH]}}
+
+
 def _gloo_summary(step: dict) -> dict:
     """One sharded step's gloo collectives as {name: [calls, s, bytes]}."""
     return {name: [c["calls"], round(c["s"], 3), c["bytes"]]
@@ -2057,6 +2095,48 @@ def print_sharded(par: dict, card: str) -> None:
               f"{'/'.join(PAR_SH_TAMPER_LEAF)}: seal_ok "
               f"{sh['tamper_seal_ok']}, state poisoned "
               f"{sh['tamper_poisoned']}; {card}", flush=True)
+
+
+def print_sharded_serve(par: dict, card: str) -> None:
+    """One line a rank of the parallel phase's sharded sealed serving, and
+    one of the dry run's counts of its cells and of the sharded train
+    step's beside the card's."""
+    one = par["serve_one_process"]
+    for r in par["ranks"]:
+        sv = r["sharded_serve"]
+        dec = sv["decode"]
+        walls = [d["wall_s"] for d in dec]
+        print(f"sharded serve rank {r['rank']}: {PAR_PP_ARCH} at full width "
+              f"and depth, sealed parameters sharded over mesh (data 1, "
+              f"model 2), {PAR_SV_BATCH} prompts of {PAR_SV_PROMPT} tokens "
+              f"into a {PAR_SV_SLOTS}-slot sealed cache, {PAR_SV_STEPS} "
+              f"greedy decode steps (reduced "
+              f"{json.dumps(sharded_serve_reduced())}); prefill "
+              f"{sv['prefill']['wall_s']:.3f} s (one process "
+              f"{one['prefill_s']:.3f} s), decode {min(walls):.3f}-"
+              f"{max(walls):.3f} s a step (one process "
+              f"{min(one['decode_s']):.3f}-{max(one['decode_s']):.3f} s); "
+              f"gloo [calls, s, bytes] prefill "
+              f"{json.dumps(_gloo_summary(sv['prefill']))}, decode step 0 "
+              f"{json.dumps(_gloo_summary(dec[0]))}; launches (ctr, mac) "
+              f"prefill ({sv['prefill']['ctr']}, {sv['prefill']['mac']}), "
+              f"a decode step {sorted({(d['ctr'], d['mac']) for d in dec})};"
+              f" peak {sv['peak_bytes'] / 2**30:.2f} GiB (one process "
+              f"{one['peak_bytes'] / 2**30:.2f}); sealed bytes held "
+              f"{sv['held_bytes']} of {sv['whole_bytes']} (parameters and "
+              f"cache); tokens equal to one process's {sv['tokens_equal']} "
+              f"({PAR_SV_STEPS + 1} x {PAR_SV_BATCH}), largest logit "
+              f"difference {sv['logit_diff']}; its cache block changed by "
+              f"the decode steps {sv['block_changed']}; a flipped bit in rank"
+              f" {PAR_SV_TAMPER_RANK}'s block of "
+              f"{'/'.join(PAR_SH_TAMPER_LEAF)}: NaN logits "
+              f"{sv['tamper_nan']}; {card}", flush=True)
+    print(f"dry run against the card (launch/dryrun.py on the meta device, "
+          f"fake group of 2, per call; [dry run, card]): "
+          f"{json.dumps(par['dryrun_check'])}; dry run "
+          f"{par['dryrun_s']:.1f} s; the parent held "
+          f"{par['parent_reserved_bytes'] / 2**30:.2f} GiB of the card while "
+          f"the ranks ran; {card}", flush=True)
 
 
 def _counted():
@@ -2508,45 +2588,33 @@ def _sharded_batch(cell, mesh, i: int) -> dict:
     return {k: shd.distribute(v, bsh[k]) for k, v in batch.items()}
 
 
-class _CollectiveClock:
-    """Wall seconds and bytes of the gloo collectives the port calls
-    (``all_gather_into_tensor``: bytes gathered; ``all_reduce``: bytes
-    reduced), each timed between two device syncs, while installed."""
-    NAMES = ("all_gather_into_tensor", "all_reduce")
+def _collective_clock():
+    """The dry run's count of the port's collectives (calls and bytes of
+    each call's output, ``launch/dryrun.py::CollectiveCount``), each call
+    also timed between two device syncs, while installed.  ``take()``
+    gives {torch name: {calls, s, bytes}} since the last take, always
+    with ``all_gather_into_tensor`` and ``all_reduce``."""
+    from repro_torch.launch.dryrun import _HLO_NAMES, CollectiveCount
 
-    def __init__(self):
-        self.stats = {n: [0, 0.0, 0] for n in self.NAMES}
-
-    def __enter__(self):
-        import torch.distributed as dist
-        self.saved = {n: getattr(dist, n) for n in self.NAMES}
-        for n, fn in self.saved.items():
-            setattr(dist, n, self._timed(n, fn))
-        return self
-
-    def __exit__(self, *exc):
-        import torch.distributed as dist
-        for n, fn in self.saved.items():
-            setattr(dist, n, fn)
-
-    def _timed(self, name, fn):
-        def call(out, *args, **kwargs):
+    class CollectiveClock(CollectiveCount):
+        def _call(self, rec, fn, *args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = fn(out, *args, **kwargs)
+            res = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            st = self.stats[name]
-            st[0] += 1
-            st[1] += time.perf_counter() - t0
-            st[2] += out.numel() * out.element_size()
+            rec["s"] = rec.get("s", 0.0) + time.perf_counter() - t0
             return res
-        return call
 
-    def take(self) -> dict:
-        out = {n: {"calls": c, "s": t, "bytes": b}
-               for n, (c, t, b) in self.stats.items()}
-        self.stats = {n: [0, 0.0, 0] for n in self.NAMES}
-        return out
+        def take(self) -> dict:
+            out = {n: {"calls": r.get("count", 0), "s": r.get("s", 0.0),
+                       "bytes": int(r.get("bytes", 0))}
+                   for n, op in _HLO_NAMES.items()
+                   for r in [self.stats.get(op, {})]
+                   if r or n in ("all_gather_into_tensor", "all_reduce")}
+            self.stats = {}
+            return out
+
+    return CollectiveClock()
 
 
 def _sharded_rank(mesh) -> dict:
@@ -2607,7 +2675,7 @@ def _sharded_rank(mesh) -> dict:
     out = []
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    with shd.use(shd.make_ctx(mesh)), _CollectiveClock() as clock:
+    with shd.use(shd.make_ctx(mesh)), _collective_clock() as clock:
         for i in range(PAR_SH_STEPS):
             b = _sharded_batch(cell, mesh, i)
             c0, m0 = ctr_ops.ctr_xor.launches, mac_ops.mac_tags.launches
@@ -2649,6 +2717,230 @@ def _sharded_rank(mesh) -> dict:
             "tamper_seal_ok": tamper_ok, "tamper_poisoned": all(nan)}
 
 
+def _serve_cell():
+    """granite's prefill_32k cell cut to PAR_SV_BATCH x PAR_SV_SLOTS."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+    cell = steps.make_cell(PAR_PP_ARCH, "prefill_32k")
+    cell.shape = dataclasses.replace(cell.shape, seq_len=PAR_SV_SLOTS,
+                                     global_batch=PAR_SV_BATCH)
+    return cell
+
+
+def _serve_inputs(cell):
+    """The whole parameters and prompts of the sharded serving case, from
+    SEED on the card."""
+    from repro_torch.models import transformer as TF
+    dev = cell.key.device
+    params = TF.init(torch.Generator(device=dev).manual_seed(SEED),
+                     cell.cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cell.cfg.vocab, (PAR_SV_BATCH, PAR_SV_PROMPT),
+                           generator=g, device=dev, dtype=torch.int32)
+    return params, {"tokens": tokens}
+
+
+def serve_one_process() -> tuple[dict, list]:
+    """The sharded serving case in this process on the whole sealed tree:
+    (its times and peak, its logits of each call on the host), after the
+    ranks have ended and freed the card."""
+    from repro_torch.core import sealed as sealed_lib
+    from repro_torch.launch import steps
+
+    cell = _serve_cell()
+    params, batch = _serve_inputs(cell)
+    sealed = sealed_lib.seal_tree(params, cell.key, cell.sec.weights, 1 << 8)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefill, decode = steps.make_prefill_fn(cell), steps.make_decode_fn(cell)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(sealed, batch)
+    torch.cuda.synchronize()
+    out = {"prefill_s": time.perf_counter() - t0, "decode_s": []}
+    got = [logits.float().cpu()]
+    for _ in range(PAR_SV_STEPS):
+        t0 = time.perf_counter()
+        logits, state = decode(sealed, state,
+                               logits.argmax(-1).to(torch.int32))
+        torch.cuda.synchronize()
+        out["decode_s"].append(time.perf_counter() - t0)
+        got.append(logits.float().cpu())
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del sealed, state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, got
+
+
+def _sharded_serve_rank(mesh, logits_path: str) -> dict:
+    """granite at full width and depth, its sealed parameters sharded over
+    the (data 1, model 2) mesh by ``params_shardings`` (each rank seals
+    its own blocks): a prefill of PAR_SV_BATCH prompts into a
+    PAR_SV_SLOTS-slot sealed cache and PAR_SV_STEPS greedy decode steps
+    through ``make_prefill_fn`` / ``make_decode_fn`` under the mesh's
+    context, with each call's gloo collectives and launches; then one
+    decode step with a flipped ciphertext bit in PAR_SV_TAMPER_RANK's
+    block of a parameter leaf.  Its logits of each call go to
+    ``logits_path`` (the parent holds them against one process's)."""
+    from repro_torch.core import sealed as sealed_lib
+    from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.kernels.tree_mac import ops as mac_ops
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding as shd
+
+    cell = _serve_cell()
+    params, batch = _serve_inputs(cell)
+    shs = [s.ct for s in sealed_lib.tree_leaves(
+        steps.params_shardings(cell, mesh))]
+    leaves = [shd.distribute(x, sh) for x, sh in
+              zip(sealed_lib.tree_leaves(params), shs)]
+    blocks = sealed_lib.tree_unflatten(params, leaves)
+    del params, leaves
+    bsh = steps.batch_shardings(
+        cell, mesh, {k: (tuple(v.shape), v.dtype) for k, v in batch.items()},
+        stacked=False)
+    batch = {k: shd.distribute(v, bsh[k]) for k, v in batch.items()}
+    tok_sh = steps.batch_shardings(cell, mesh,
+                                   {"tokens": ((PAR_SV_BATCH,), torch.int32)},
+                                   stacked=False)["tokens"]
+    sealed = sealed_lib.seal_tree(blocks, cell.key, cell.sec.weights, 1 << 8)
+    del blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill, decode = steps.make_prefill_fn(cell), steps.make_decode_fn(cell)
+    calls, got = [], []
+
+    def timed(fn, *args):
+        c0, m0 = ctr_ops.ctr_xor.launches, mac_ops.mac_tags.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        calls.append(dict(wall_s=time.perf_counter() - t0,
+                          ctr=ctr_ops.ctr_xor.launches - c0,
+                          mac=mac_ops.mac_tags.launches - m0,
+                          collectives=clock.take()))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with shd.use(shd.make_ctx(mesh)), _collective_clock() as clock:
+        logits, state = timed(prefill, sealed, batch)
+        got.append(logits.float().cpu())
+        first = state["k_ct"].to_local().clone()
+        for _ in range(PAR_SV_STEPS):
+            tok = shd.distribute(logits.argmax(-1).to(torch.int32), tok_sh)
+            logits, state = timed(decode, sealed, state, tok)
+            got.append(logits.float().cpu())
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    changed = not torch.equal(first, state["k_ct"].to_local())
+    del first
+    held = whole = 0
+    for d in [x for st in sealed_lib.tree_leaves(sealed)
+              for x in (st.ct, st.tags)] + [v for v in state.values()
+                                            if hasattr(v, "to_local")]:
+        local = d.to_local()
+        held += local.numel() * local.element_size()
+        whole += d.numel() * local.element_size()
+    with shd.use(shd.make_ctx(mesh)):
+        st = sealed
+        for k in PAR_SH_TAMPER_LEAF:
+            st = st[k]
+        if mesh.get_rank() == PAR_SV_TAMPER_RANK:
+            flat = st.ct.to_local().view(-1)
+            flat[flat.numel() // 3] ^= 1 << 7
+        tok = shd.distribute(logits.argmax(-1).to(torch.int32), tok_sh)
+        bad, _ = decode(sealed, state, tok)
+        tamper_nan = bool(torch.isnan(bad).all())
+    del sealed, state, bad, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(got, logits_path)
+    return {"prefill": calls[0], "decode": calls[1:], "launches": launches,
+            "peak_bytes": peak, "held_bytes": held, "whole_bytes": whole,
+            "block_changed": changed, "tamper_nan": tamper_nan}
+
+
+def _dryrun_child(path: str) -> None:
+    """The dry run's rows (``launch/dryrun.py``, meta device, a fake group
+    of 2 ranks on make_smoke_mesh(2)) of the parallel phase's sharded
+    cells: the serving prefill and decode step, and the sharded train
+    step; written to ``path`` as JSON."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    cells = {
+        "serve prefill": ("prefill_32k", {"seq_len": PAR_SV_SLOTS,
+                                          "global_batch": PAR_SV_BATCH},
+                          dict(prompt_len=PAR_SV_PROMPT)),
+        "serve decode step": ("decode_32k", {"seq_len": PAR_SV_SLOTS,
+                                             "global_batch": PAR_SV_BATCH},
+                              {}),
+        "sharded train step": ("train_4k", {"seq_len": PAR_SH_SEQ,
+                                            "global_batch": PAR_SH_MICRO},
+                               dict(microbatch=1))}
+    t0 = time.perf_counter()
+    with dryrun.fake_world(2):
+        mesh = make_smoke_mesh(2, device_type="cpu")
+        rows = {name: dryrun.run_cell(PAR_PP_ARCH, shape, mesh, "smoke_1x2",
+                                      "trusted", cuts=cuts, **kw)
+                for name, (shape, cuts, kw) in cells.items()}
+    Path(path).write_text(json.dumps({"rows": rows,
+                                      "s": time.perf_counter() - t0}))
+
+
+def dryrun_against_card(rows: dict, ranks: list) -> dict:
+    """{cell: {"collectives": {op: [dry-run calls, card calls, dry-run
+    bytes, card bytes]}, "ctr": [...], "mac": [...], "peak_ratio"}} with
+    every card call of the cell (each rank, each step) in the card's
+    columns: the calls and bytes must be equal."""
+    from repro_torch.launch.dryrun import _HLO_NAMES
+
+    out = {}
+    for cell, row in rows.items():
+        card = []
+        for r in ranks:
+            if cell == "sharded train step":
+                card += [(st, r["sharded"]["peak_bytes"])
+                         for st in r["sharded"]["steps"]]
+            elif cell == "serve prefill":
+                card.append((r["sharded_serve"]["prefill"],
+                             r["sharded_serve"]["peak_bytes"]))
+            else:
+                card += [(st, r["sharded_serve"]["peak_bytes"])
+                         for st in r["sharded_serve"]["decode"]]
+        coll = {}
+        ops = set(row["collectives"]) | {
+            _HLO_NAMES[k] for c, _ in card for k in c["collectives"]}
+        for op in sorted(ops):
+            dry = row["collectives"].get(op, {"count": 0, "bytes": 0})
+            calls = sorted({c["collectives"].get(k, {}).get("calls", 0)
+                            for c, _ in card for k in _HLO_NAMES
+                            if _HLO_NAMES[k] == op})
+            nbytes = sorted({c["collectives"].get(k, {}).get("bytes", 0)
+                             for c, _ in card for k in _HLO_NAMES
+                             if _HLO_NAMES[k] == op})
+            coll[op] = [dry["count"], calls, dry["bytes"], nbytes]
+        out[cell] = {
+            "collectives": coll,
+            "ctr": [row["ctr_launches"], sorted({c["ctr"] for c, _ in card})],
+            "mac": [row["mac_launches"], sorted({c["mac"] for c, _ in card})],
+            "peak_ratio": row["peak_bytes_per_device"] / max(
+                p for _, p in card)}
+    return out
+
+
+def _counts_equal(check_row: dict) -> bool:
+    return all(v[1] == [v[0]] and v[3] == [v[2]]
+               for v in check_row["collectives"].values()) and all(
+        check_row[k][1] == [check_row[k][0]] for k in ("ctr", "mac"))
+
+
 def _par_rank(rank: int, port: int, out_dir: str, ckpt_path: str) -> None:
     """One of the phase's two processes: EP, then the pipeline, the
     elastic restore and the sharded sealed train step; its results go to
@@ -2675,6 +2967,11 @@ def _par_rank(rank: int, port: int, out_dir: str, ckpt_path: str) -> None:
         torch.cuda.empty_cache()
         dist.barrier()
         res["sharded"] = _sharded_rank(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        res["sharded_serve"] = _sharded_serve_rank(
+            mesh, f"{out_dir}/serve_rank{rank}.pt")
         Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -2720,7 +3017,32 @@ def parallel_phase() -> dict:
     width), the sealed pipeline (granite at full size), the elastic
     restore of granite's sealed parameters saved here with
     ``checkpoint.save``, and granite's sealed train step on the sharded
-    state, against one step of the whole state taken here first."""
+    state, against one step of the whole state taken here first; then
+    granite's sealed prefill and decode on sharded parameters against one
+    process's serving of the same, and the dry run's count of both sharded
+    cells (``launch/dryrun.py`` in a process of its own meanwhile) against
+    the card's."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    # the dry run's count of the sharded cells, on the host meanwhile
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry = mp.get_context("spawn").Process(
+        target=_dryrun_child, args=(f"{dry_dir}/rows.json",))
+    dry.start()
+    try:
+        return _parallel_body(dry, dry_dir)
+    finally:
+        if dry.is_alive():
+            dry.terminate()
+            dry.join()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def _parallel_body(dry, dry_dir: str) -> dict:
+    """``parallel_phase`` with the dry run's process ``dry`` started."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -2767,6 +3089,7 @@ def parallel_phase() -> dict:
         del state, m
         gc.collect()
         torch.cuda.empty_cache()
+        parent_bytes = torch.cuda.memory_reserved()
         ctx = mp.start_processes(_par_rank, args=(_free_port(), tmp, path),
                                  nprocs=2, join=False, start_method="spawn")
         t_end = time.monotonic() + PAR_TIMEOUT_S
@@ -2780,6 +3103,15 @@ def parallel_phase() -> dict:
                     proc.terminate()
         ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
                  for r in range(2)]
+        serve_one, want = serve_one_process()
+        for r in ranks:
+            got = torch.load(f"{tmp}/serve_rank{r['rank']}.pt")
+            r["sharded_serve"].update(
+                tokens_equal=len(got) == len(want) and all(
+                    torch.equal(a.argmax(-1), b.argmax(-1))
+                    for a, b in zip(got, want)),
+                logit_diff=max(float((a - b).abs().max())
+                               for a, b in zip(got, want)))
     for r in ranks:
         ep, pp, rs = r["ep"], r["pipeline"], r["restore"]
         check(ep["loss_rel"] <= PAR_EP_LOSS_RTOL
@@ -2813,6 +3145,34 @@ def parallel_phase() -> dict:
               f"{sh['whole_bytes']} sealed bytes")
     check(len({r["sharded"]["steps"][-1]["loss"] for r in ranks}) == 1,
           "the sharded step's ranks returned different losses")
+    for r in ranks:
+        sv = r["sharded_serve"]
+        check(sv["tokens_equal"], f"rank {r['rank']}: the sharded serving's "
+              f"tokens differ from one process's (largest logit difference "
+              f"{sv['logit_diff']})")
+        check(sv["tamper_nan"], f"rank {r['rank']}: a flipped bit on rank "
+              f"{PAR_SV_TAMPER_RANK} did not poison the logits")
+        check(0 < sv["held_bytes"] < sv["whole_bytes"],
+              f"rank {r['rank']}: holds {sv['held_bytes']} of "
+              f"{sv['whole_bytes']} sealed bytes")
+        check(all(c["ctr"] > 0 for c in [sv["prefill"]] + sv["decode"])
+              and sv["prefill"]["mac"] > 0,
+              f"rank {r['rank']}: a sharded serving call launched no CTR "
+              f"or MAC kernel")
+        # rank 0 holds the prompts' slots, rank 1 the decode writes
+        check(sv["block_changed"] == (r["rank"] == 1),
+              f"rank {r['rank']}: its cache block changed by the decode "
+              f"steps: {sv['block_changed']}")
+    dry.join(timeout=PAR_TIMEOUT_S)
+    if dry.is_alive():
+        dry.terminate()
+    check(dry.exitcode == 0, f"the dry run of the sharded cells ended with "
+          f"{dry.exitcode}")
+    dry_out = json.loads(Path(f"{dry_dir}/rows.json").read_text())
+    dry_check = dryrun_against_card(dry_out["rows"], ranks)
+    for cell, c in dry_check.items():
+        check(dry_out["rows"][cell]["status"] == "ok" and _counts_equal(c),
+              f"the dry run's {cell} counts differ from the card's: {c}")
     check(ranks[0]["pipeline"]["loss"] == ranks[1]["pipeline"]["loss"],
           "the pipeline's stages returned different losses")
     check(max(r["pipeline"]["control_grad_rel_max"] for r in ranks)
@@ -2820,6 +3180,9 @@ def parallel_phase() -> dict:
           "the pipeline's wrong-domain control passed the gradient limit")
     return {"probe": probe, "hop": hop, "ranks": ranks, "save_s": save_s,
             "ckpt_bytes": ckpt_bytes, "one_process": one,
+            "serve_one_process": serve_one, "dryrun_check": dry_check,
+            "parent_reserved_bytes": parent_bytes,
+            "dryrun_s": dry_out["s"],
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -3145,6 +3508,7 @@ def main() -> int:
     par = parallel_phase()
     print_parallel(par, card)
     print_sharded(par, card)
+    print_sharded_serve(par, card)
 
     # 13. report ----------------------------------------------------------
     sources = {"ctr_cipher": ("src/repro_torch/csrc/ctr_cipher.cu",
@@ -3260,6 +3624,9 @@ def main() -> int:
     by_path["parallel sharded train steps"] = {
         k: sum(r["sharded"]["launches"][k] for r in par["ranks"])
         for k in launches}
+    by_path["parallel sharded serving"] = {
+        k: sum(r["sharded_serve"]["launches"][k] for r in par["ranks"])
+        for k in launches}
     for arch, f in fams.items():
         by_path[f"{arch} sealed"] = f["sealed"]["launches"]
         if "fused" in f:
@@ -3300,6 +3667,20 @@ def main() -> int:
                                                 "bound_by") if c in x}
                              for x in results[k["name"]]
                              if x["shape"].startswith("sharded")]}
+    for k in kernels[:2]:
+        pre = "ctr" if k["name"] == "ctr_cipher" else "mac"
+        k["sharded_serve"] = {
+            "launches_prefill_per_rank": [r["sharded_serve"]["prefill"][pre]
+                                          for r in par["ranks"]],
+            "launches_per_decode_step_per_rank": [
+                sorted({st[pre] for st in r["sharded_serve"]["decode"]})
+                for r in par["ranks"]],
+            "dryrun_launches": {cell: c[pre] for cell, c in
+                                par["dryrun_check"].items()},
+            "workload": f"{PAR_PP_ARCH}'s sealed prefill of {PAR_SV_BATCH} "
+                        f"x {PAR_SV_PROMPT} tokens into {PAR_SV_SLOTS} slots "
+                        f"and {PAR_SV_STEPS} decode steps on mesh (data 1, "
+                        "model 2), each rank its blocks"}
     kernels[0]["crosspod"] = {
         mode: {k: xpod[mode][k] for k in ("ctr_ms", "ctr_bound_ms",
                                           "bound_by", "ctr_bytes")}

@@ -12,7 +12,8 @@ import importlib
 
 import torch
 
-from ..models.config import (SHAPES_BY_NAME,  # noqa: F401 (re-exported)
+from ..models.config import (ALL_SHAPES,
+                             SHAPES_BY_NAME,  # noqa: F401 (re-exported)
                              ModelConfig, ShapeConfig)
 
 ARCH_IDS = (
@@ -84,3 +85,9 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, microbatch: int = 0):
         return {"tokens": ((GB,), i32)}
     raise ValueError(shape.kind)
 
+
+def all_cells():
+    """Yield every (arch_id, ShapeConfig, skip_reason|None) — 40 cells."""
+    for a in ARCH_IDS:
+        for s in ALL_SHAPES:
+            yield a, s, skip_reason(a, s.name)

@@ -91,6 +91,83 @@ def block_of(shape, mesh, placements, coord) -> tuple[list, list]:
     return offs, sizes
 
 
+def block_rows(shape, offs, sizes, device=None) -> torch.Tensor:
+    """int64 [prod(sizes[:-1])]: the counter rows of the block at ``offs``
+    of ``sizes`` in a tensor of ``shape``, i.e. its rows' flattened
+    leading indices in the whole tensor (not contiguous when a dim after
+    the first is split)."""
+    rows = torch.zeros((), dtype=torch.int64)
+    for d in range(len(shape) - 1):
+        rows = rows[..., None] * shape[d] + torch.arange(offs[d],
+                                                         offs[d] + sizes[d])
+    return rows.reshape(-1).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Region:
+    """A rank's block of a whole tensor of ``shape``: its offsets and
+    sizes (``block_of``).  A model that computes the whole tensor seals
+    only this block (``take``) against the whole tensor's counters: the
+    rows of each item of the dims from ``lead`` on, and ``col0``."""
+    shape: tuple
+    offs: tuple
+    sizes: tuple
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        return x[tuple(slice(o, o + n) for o, n in zip(self.offs,
+                                                       self.sizes))]
+
+    def rows(self, lead: int, device) -> torch.Tensor:
+        return block_rows(self.shape[lead:], self.offs[lead:],
+                          self.sizes[lead:], device)
+
+    @property
+    def col0(self) -> int:
+        return self.offs[-1]
+
+
+def seal_items(x: torch.Tensor, key: torch.Tensor, nonce,
+               region: Region | None = None, lead: int = 1) -> torch.Tensor:
+    """CTR-seal ``x`` as items along its first ``lead`` dims (0: one item;
+    1: one per index of dim 0, with ``key`` [N, 2] and ``nonce`` [N]); with
+    ``region``, only that block of ``x``, against the whole items'
+    counters (the block spans dim 0 whole when ``lead`` is 1)."""
+    if region is None:
+        return cipher.seal_bits(x, key, nonce)
+    blk = region.take(x)
+    rows = region.rows(lead, x.device)
+    if lead:
+        rows = rows.expand(blk.shape[0], -1)
+    return cipher.seal_bits_slice(blk, key, nonce, rows, region.col0)
+
+
+def whole(x):
+    """A DTensor's whole tensor on every rank (its blocks all-gathered,
+    FSDP-style); anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return gather_block(x, range(x.dim()))
+
+
+def take_block(full: torch.Tensor, like) -> torch.Tensor:
+    """This rank's block of the whole tensor ``full``, in ``like``'s (a
+    DTensor's) placements; ``full`` as it is for anything else."""
+    if not isinstance(like, DTensor):
+        return full
+    mesh = like.device_mesh
+    offs, sizes = block_of(tuple(like.shape), mesh, like.placements,
+                           mesh.get_coordinate())
+    return Region(tuple(like.shape), tuple(offs), tuple(sizes)).take(full)
+
+
+def all_ranks_ok(ok: torch.Tensor) -> torch.Tensor:
+    """The AND of every rank's verdict (an int all-reduce over the whole
+    group): one bad tag anywhere is a bad verdict everywhere."""
+    bad = (~ok).to(torch.int32)
+    dist.all_reduce(bad)
+    return bad == 0
+
+
 def wrap(local: torch.Tensor, mesh, placements, shape) -> DTensor:
     """A rank's block as a DTensor of the (contiguous) global ``shape``."""
     shape = tuple(shape)
@@ -142,12 +219,9 @@ class Block:
         self.shape = tuple(x.shape)
         offs, sizes = block_of(self.shape, self.mesh, self.placements,
                                self.mesh.get_coordinate())
-        rows = torch.zeros((), dtype=torch.int64)
-        for d in range(len(self.shape) - 1):
-            rows = rows[..., None] * self.shape[d] + torch.arange(
-                offs[d], offs[d] + sizes[d])
         self.col0 = offs[-1]
-        self.rows = rows.reshape(-1).to(x.to_local().device)    # int64
+        self.rows = block_rows(self.shape, offs, sizes,
+                               x.to_local().device)             # int64
 
     def tags_placements(self) -> tuple:
         """The tags' placements: the leaf's, its last axis unsplit."""

@@ -8,4 +8,7 @@ and its CUDA source is ``csrc/<name>.cu`` (built by ``build.py``).
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.  ``<wrapper>.launches`` counts launches.
+The CTR and MAC wrappers also take meta tensors (the dry run): they return
+empty results and count, in ``<wrapper>.meta_launches``, the launches the
+card would make.
 """

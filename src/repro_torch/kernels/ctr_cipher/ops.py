@@ -1,7 +1,11 @@
 """Wrapper of the CTR kernel: checks, dispatch by device, launch count.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-``csrc/ctr_cipher.cu`` on PyTorch's current stream, or raises.
+``csrc/ctr_cipher.cu`` on PyTorch's current stream, or raises.  A tensor
+on the meta device (the dry run, ``launch/dryrun.py``) gets an empty
+result of the right shape and dtype, and ``ctr_xor.meta_launches`` counts
+the launch the card would make: nothing is computed or launched, and
+``ctr_xor.launches`` counts real launches only.
 """
 from __future__ import annotations
 
@@ -53,12 +57,15 @@ def ctr_xor(x: torch.Tensor, tkeys: torch.Tensor,
             raise ValueError("ctr_xor operands must share one device")
     if x.device.type == "cpu":
         return ctr_xor_ref(x, tkeys, rows, col0)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ctr_xor runs on cpu or cuda, not {x.device}")
     if N > MAX_ITEMS:
         raise ValueError(f"ctr_xor takes at most {MAX_ITEMS} items, got {N}")
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     if out.numel() == 0:
+        return out
+    if x.device.type == "meta":
+        ctr_xor.meta_launches += 1
         return out
     x = x.contiguous()
     if x.data_ptr() % 8:
@@ -77,3 +84,4 @@ def ctr_xor(x: torch.Tensor, tkeys: torch.Tensor,
 
 
 ctr_xor.launches = 0
+ctr_xor.meta_launches = 0

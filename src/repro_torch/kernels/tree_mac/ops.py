@@ -5,6 +5,10 @@ A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 indexes an item's words in 32 bits, so an item of more than
 ``MAX_ITEM_WORDS`` words is launched as slabs of rows, each under the
 limit, with the slab's first row passed as ``row0`` (the tags' positions).
+A tensor on the meta device (the dry run, ``launch/dryrun.py``) gets an
+empty result of the right shape, and ``mac_tags.meta_launches`` counts the
+launches the card would make: nothing is computed or launched, and
+``mac_tags.launches`` counts real launches only.
 """
 from __future__ import annotations
 
@@ -89,16 +93,19 @@ def mac_tags(x: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         raise ValueError("mac_tags operands must share one device")
     if x.device.type == "cpu":
         return mac_tags_ref(x, keys, cw)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"mac_tags runs on cpu or cuda, not {x.device}")
     if N > MAX_ITEMS:
         raise ValueError(f"mac_tags takes at most {MAX_ITEMS} items, got {N}")
     out = torch.empty((N, R, words // cw), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
+    rows = slab_rows(R, E * x.element_size())
+    if x.device.type == "meta":
+        mac_tags.meta_launches += 1 if rows == R else N * -(-R // rows)
+        return out
     x = x.contiguous()
     keys = keys.contiguous()
-    rows = slab_rows(R, E * x.element_size())
     if rows == R:
         _launch(x, keys, out, 0)
     else:
@@ -111,3 +118,4 @@ def mac_tags(x: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
 
 
 mac_tags.launches = 0
+mac_tags.meta_launches = 0

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import configs
 from ..core import sealed as sealed_lib
@@ -163,34 +164,118 @@ def make_train_step_fn(cell: Cell, grad_hook=None, in_place: bool = False):
                                        in_place=in_place)
 
 
+def _mesh_of(*trees):
+    """The mesh of the first DTensor among the trees' tensors (a sealed
+    leaf's ciphertext included), or None: the step is then one
+    process's."""
+    for leaf in sealed_lib.tree_leaves(list(trees)):
+        x = leaf.ct if sealed_lib.is_sealed(leaf) else leaf
+        if isinstance(x, DTensor):
+            return x.device_mesh
+    return None
+
+
+def _whole_tree(tree):
+    return sealed_lib.tree_unflatten(
+        tree, [sealed_lib.whole(x) for x in sealed_lib.tree_leaves(tree)])
+
+
+def _open_params(cell: Cell, params, mesh):
+    """(the parameters whole on every rank, the verdict on them): each
+    rank verifies and decrypts its own blocks, the plaintext is gathered
+    FSDP-style, and the verdict is the AND over the ranks."""
+    ok = True
+    if cell.sealed:
+        params, ok = sealed_lib.unseal_tree(params, cell.key)
+        if mesh is not None:
+            ok = sealed_lib.all_ranks_ok(ok)
+    return (params if mesh is None else _whole_tree(params)), ok
+
+
+def _gate(ok, logits):
+    return torch.where(torch.as_tensor(ok, device=logits.device), logits,
+                       torch.nan)
+
+
+def _state_regions(cell: Cell, mesh, batch: dict, max_len: int) -> dict:
+    """{field: (Region, Sharding)} of this rank's blocks of the decode
+    state a prefill of ``batch`` (whole) gives, in
+    ``decode_state_shardings``."""
+    cfg = cell.cfg
+    src = batch["frame_embeds"].shape[1] if "frame_embeds" in batch else 0
+    like = registry.make_decode_state(cfg, batch["tokens"].shape[0], max_len,
+                                      src, sealed=cell.sealed, device="meta")
+    sh = shd.tree_named_shardings(
+        registry.decode_state_specs(cfg, sealed=cell.sealed), mesh, like)
+    coord = mesh.get_coordinate()
+    out = {}
+    for f, x in like.items():
+        if isinstance(x, torch.Tensor):
+            offs, sizes = sealed_lib.block_of(tuple(x.shape), mesh,
+                                              sh[f].placements, coord)
+            out[f] = (sealed_lib.Region(tuple(x.shape), tuple(offs),
+                                        tuple(sizes)), sh[f])
+    return out
+
+
 def make_prefill_fn(cell: Cell):
+    """The prefill step: (params, batch) -> (last-token logits, decode
+    state).  On a sharded state (DTensor leaves, ``params_shardings``;
+    the batch's leaves may be DTensors of ``batch_shardings``) every rank
+    runs the model on the whole parameters and the whole batch (the MoE's
+    capacity is then the global batch's, as in one process), and seals
+    only its own block of the decode state, against the whole state's
+    counters, as a DTensor of ``decode_state_shardings``: its
+    ciphertext is that block of one process's, bit for bit."""
     max_len = cell.shape.seq_len
 
     def prefill(params, batch):
-        if cell.sealed:
-            params, ok = sealed_lib.unseal_tree(params, cell.key)
-            ctx = (cell.key, 1)
-        else:
-            ok, ctx = True, None
-        logits, cache = cell.model.prefill(params, cell.cfg, batch, max_len,
-                                           seal_ctx=ctx)
-        return torch.where(torch.as_tensor(ok, device=logits.device), logits,
-                           torch.nan), cache
+        mesh = _mesh_of(params, batch)
+        params, ok = _open_params(cell, params, mesh)
+        ctx = (cell.key, 1) if cell.sealed else None
+        if mesh is None:
+            logits, cache = cell.model.prefill(params, cell.cfg, batch,
+                                               max_len, seal_ctx=ctx)
+            return _gate(ok, logits), cache
+        batch = {k: sealed_lib.whole(v) for k, v in batch.items()}
+        regions = _state_regions(cell, mesh, batch, max_len)
+        logits, cache = cell.model.prefill(
+            params, cell.cfg, batch, max_len, seal_ctx=ctx,
+            blocks={f: r for f, (r, _) in regions.items()})
+        for f, (r, sh) in regions.items():
+            cache[f] = sealed_lib.wrap(cache[f], mesh, sh.placements,
+                                       r.shape)
+        return _gate(ok, logits), cache
 
     return prefill
 
 
 def make_decode_fn(cell: Cell):
+    """One decode step: (params, decode state, tokens [B]) -> (logits,
+    decode state).  On a sharded state every rank gathers the state's
+    ciphertext whole (never its plaintext), runs the one-process step
+    and keeps its own block of the new state: the new slot survives only
+    in the block of the rank that holds ``pos``.  ``pos`` and ``nonce``
+    are replicated ints."""
     def decode(params, cache, tokens):
-        if cell.sealed:
-            params, ok = sealed_lib.unseal_tree(params, cell.key)
-            ctx = (cell.key, cache.get("nonce"))
-        else:
-            ok, ctx = True, None
-        logits, cache = cell.model.decode_step(params, cell.cfg, cache,
-                                               tokens, seal_ctx=ctx)
-        return torch.where(torch.as_tensor(ok, device=logits.device), logits,
-                           torch.nan), cache
+        mesh = _mesh_of(params, cache, tokens)
+        params, ok = _open_params(cell, params, mesh)
+        ctx = (cell.key, cache.get("nonce")) if cell.sealed else None
+        if mesh is None:
+            logits, cache = cell.model.decode_step(params, cell.cfg, cache,
+                                                   tokens, seal_ctx=ctx)
+            return _gate(ok, logits), cache
+        full = {k: sealed_lib.whole(v) for k, v in cache.items()}
+        logits, new = cell.model.decode_step(params, cell.cfg, full,
+                                             sealed_lib.whole(tokens),
+                                             seal_ctx=ctx)
+        for k, like in cache.items():
+            if isinstance(like, DTensor):
+                mine = sealed_lib.take_block(new[k], like)
+                new[k] = sealed_lib.wrap(
+                    mine.clone(memory_format=torch.contiguous_format),
+                    mesh, like.placements, like.shape)
+        return _gate(ok, logits), new
 
     return decode
 

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import cipher
+from ..core import sealed as sealed_lib
 from ..core.channel import resolve_device
 from ..kernels import common
 from . import layers as L
@@ -185,24 +186,28 @@ def _nonces(nonce: int, layer_idx: int) -> tuple[int, int, int, int]:
     return tuple((sub * 4 + i) & common.M32 for i in range(4))
 
 
-def seal_caches(caches, key: torch.Tensor, nonce: int):
+def seal_caches(caches, key: torch.Tensor, nonce: int, regions=None):
     """Seal (k, v, xk, xv), each [n_dec, B, T, K, hd], layer by layer
     under each layer's four nonces; one CTR launch per field (the layers
-    are the items of one batch)."""
+    are the items of one batch).  ``regions`` ({field + "_ct": Region})
+    seals only a rank's block of each."""
     n = caches[0].shape[0]
     nonces = [_nonces(nonce, l) for l in range(n)]
     keys = key.reshape(1, 2).expand(n, 2)
+    regions = regions or {}
     return tuple(
-        cipher.seal_bits(c, keys, torch.tensor([ns[i] for ns in nonces],
-                                               device=c.device))
-        for i, c in enumerate(caches))
+        sealed_lib.seal_items(c, keys, torch.tensor([ns[i] for ns in nonces],
+                                                    device=c.device),
+                              regions.get(f + "_ct"))
+        for i, (c, f) in enumerate(zip(caches, _CACHE_FIELDS)))
 
 
-def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
+def prefill(params, cfg, batch, max_len: int, seal_ctx=None, blocks=None):
     """Encode the source, prefill the decoder over the prompt tokens;
     return (last-token logits, cache).  batch: frame_embeds [B, T_src, D]
     and tokens [B, S]; the self KV is padded to ``max_len`` (the padding
-    rows sealed too, as the reference does), the cross KV is T_src long."""
+    rows sealed too, as the reference does), the cross KV is T_src long.
+    blocks: only these blocks of the cache (``transformer.prefill``)."""
     enc_out = encode(params, cfg, batch["frame_embeds"])
     tokens = batch["tokens"]
     S = tokens.shape[1]
@@ -216,11 +221,12 @@ def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
     cache = {"pos": S}
     if seal_ctx is not None:
         key, nonce = seal_ctx
-        sealed = seal_caches((ks, vs, xks, xvs), key, nonce)
+        sealed = seal_caches((ks, vs, xks, xvs), key, nonce, blocks)
         cache.update({f + "_ct": c for f, c in zip(_CACHE_FIELDS, sealed)})
         cache["nonce"] = int(nonce) & common.M32
     else:
-        cache.update(dict(zip(_CACHE_FIELDS, (ks, vs, xks, xvs))))
+        cache.update(TF.plain_blocks(
+            dict(zip(_CACHE_FIELDS, (ks, vs, xks, xvs))), blocks))
     logits = TF.logits_of(params, cfg, x[:, -1:, :])[:, 0]
     return logits, cache
 

@@ -341,10 +341,11 @@ def _slot_rows(lpu: int, B: int, T: int, K: int, pos: int,
     return (((j * B + b) * T + pos) * K + k) & common.M32
 
 
-def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
+def prefill(params, cfg, batch, max_len: int, seal_ctx=None, blocks=None):
     """Run the full prompt; return (last-token logits, cache at ``max_len``).
     seal_ctx: (key int32 [2], nonce int) seals each unit's cache whole —
-    the padding rows too, as the reference does."""
+    the padding rows too, as the reference does.  blocks: only these
+    blocks of the cache (``transformer.prefill``)."""
     x, _ = TF._embed_inputs(params, cfg, batch)
     S = x.shape[1]
     pad = max_len - S
@@ -358,11 +359,11 @@ def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
     if seal_ctx is not None:
         key, nonce = seal_ctx
         # a unit [lpu, B, T, K, hd] is one item: rows run over (j, b, t, k)
-        k_ct, v_ct = TF.seal_layers(ks, vs, key, nonce)
+        k_ct, v_ct = TF.seal_layers(ks, vs, key, nonce, blocks)
         cache.update({"k_ct": k_ct, "v_ct": v_ct,
                       "nonce": int(nonce) & common.M32})
     else:
-        cache.update({"k": ks, "v": vs})
+        cache.update(TF.plain_blocks({"k": ks, "v": vs}, blocks))
     logits = TF.logits_of(params, cfg, x[:, -1:, :])
     return logits[:, 0], cache
 

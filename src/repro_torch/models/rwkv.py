@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import cipher
+from ..core import sealed as sealed_lib
 from ..core.channel import resolve_device
 from ..kernels import common
 from . import layers as L
@@ -147,11 +148,15 @@ def time_mix(p, cfg, x, prev_x, state):
     w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, hd)            # in (0,1)
     u = p["u"].float()[None, :, :, None]
     ys = []
-    for t in range(S):
+    # on the meta device (the dry run) one token gives every shape: a meta
+    # op costs ~0.3 ms, so the loop would take hours at 32k tokens
+    n = 1 if x.device.type == "meta" else S
+    for t in range(n):
         kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + u * kv))
         state = w[:, t, :, :, None] * state + kv
-    y = torch.stack(ys, dim=1).reshape(B, S, D).to(x.dtype)
+    y = torch.stack(ys, dim=1).expand(B, S, H, hd)
+    y = y.reshape(B, S, D).to(x.dtype)
     y = L.rms_norm(y, p["ln_x"], cfg.norm_eps)                       # per channel
     return (y * g) @ p["wo"], x[:, -1, :], state
 
@@ -242,8 +247,9 @@ def loss(params, cfg, batch):
                           mask=labels >= 0)
 
 
-def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
-    """For an RNN the 'cache' is the state; ``max_len`` is irrelevant."""
+def prefill(params, cfg, batch, max_len: int, seal_ctx=None, blocks=None):
+    """For an RNN the 'cache' is the state; ``max_len`` is irrelevant.
+    blocks: only these blocks of the state (``transformer.prefill``)."""
     del max_len
     tokens = batch["tokens"]
     x = _embed(params, cfg, tokens)
@@ -253,17 +259,24 @@ def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
     new_states["pos"] = tokens.shape[1]
     logits = TF.logits_of(params, cfg, x[:, -1:, :])[:, 0]
     if seal_ctx is not None:
-        new_states = _seal_state(new_states, seal_ctx)
+        new_states = _seal_state(new_states, seal_ctx, blocks)
+    elif blocks is not None:
+        new_states.update(TF.plain_blocks(
+            {f: new_states[f] for f in _STATE_FIELDS}, blocks))
     return logits, new_states
 
 
-def _seal_state(states, seal_ctx):
-    """CTR-seal the three state fields under nonces 4n, 4n + 1, 4n + 2."""
+def _seal_state(states, seal_ctx, regions=None):
+    """CTR-seal the three state fields under nonces 4n, 4n + 1, 4n + 2
+    (each field one item); ``regions``: only a rank's block of each."""
     key, nonce = seal_ctx
     n = int(nonce) & common.M32
+    regions = regions or {}
     out = dict(states)
     for i, f in enumerate(_STATE_FIELDS):
-        out[f] = cipher.seal_bits(states[f], key, (n * 4 + i) & common.M32)
+        out[f] = sealed_lib.seal_items(states[f], key,
+                                       (n * 4 + i) & common.M32,
+                                       regions.get(f), lead=0)
     out["nonce"] = n
     return out
 

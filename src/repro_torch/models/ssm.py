@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import cipher
+from ..core import sealed as sealed_lib
 from ..core.channel import resolve_device
 from ..kernels import common
 from . import layers as L
@@ -94,11 +95,14 @@ def m2_forward(p, cfg, x, ssm_state=None, conv_state=None):
                                 device=x.device)
     dtx = dt[..., None] * xh                                        # [B,S,H,p]
     h, ys = ssm_state, []
-    for t in range(S):
+    # on the meta device (the dry run) one token gives every shape (as in
+    # rwkv.time_mix)
+    for t in range(1 if x.device.type == "meta" else S):
         h = (a[:, t, :, None, None] * h
              + torch.einsum("bhp,bn->bhpn", dtx[:, t], Bf[:, t]))
         ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
-    y = torch.stack(ys, dim=1) + p["D"][None, None, :, None] * xh
+    y = torch.stack(ys, dim=1).expand(B, S, H, hp) \
+        + p["D"][None, None, :, None] * xh
     y = y.reshape(B, S, d_inner).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["out_proj"], h, conv_state
@@ -301,12 +305,16 @@ def init_state_sealed(cfg, batch: int, max_len: int, device="cuda"):
     return out
 
 
-def _seal_states(states, key, nonce):
-    """CTR-seal the four state fields under nonces 8n + i."""
+def _seal_states(states, key, nonce, regions=None):
+    """CTR-seal the four state fields under nonces 8n + i (each field one
+    item); ``regions``: only a rank's block of each."""
     n = int(nonce) & common.M32
+    regions = regions or {}
     out = dict(states)
     for i, f in enumerate(_SEAL_FIELDS):
-        out[f] = cipher.seal_bits(states[f], key, (n * 8 + i) & common.M32)
+        out[f] = sealed_lib.seal_items(states[f], key,
+                                       (n * 8 + i) & common.M32,
+                                       regions.get(f), lead=0)
     out["nonce"] = n
     return out
 
@@ -330,9 +338,10 @@ def _unseal_states(states, key, cfg):
     return out
 
 
-def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
+def prefill(params, cfg, batch, max_len: int, seal_ctx=None, blocks=None):
     """Run the prompt with live states (KV caches of ``max_len`` slots);
-    return (last-token logits, states), sealed under ``seal_ctx``."""
+    return (last-token logits, states), sealed under ``seal_ctx``;
+    blocks: only these blocks of the states (``transformer.prefill``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -343,7 +352,10 @@ def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
     logits = TF.logits_of(params, cfg, x[:, -1:, :])[:, 0]
     if seal_ctx is not None:
         key, nonce = seal_ctx
-        new_states = _seal_states(new_states, key, nonce)
+        new_states = _seal_states(new_states, key, nonce, blocks)
+    elif blocks is not None:
+        new_states.update(TF.plain_blocks(
+            {f: new_states[f] for f in _SEAL_FIELDS}, blocks))
     return logits, new_states
 
 

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..core import cipher
+from ..core import sealed as sealed_lib
 from ..core.channel import resolve_device
 from ..kernels import common
 from ..kernels.sealed_attention.ops import sealed_decode_attention
@@ -295,24 +296,31 @@ def _slot_rows(B: int, T: int, K: int, pos: int, device) -> torch.Tensor:
 
 
 def seal_layers(ks: torch.Tensor, vs: torch.Tensor, key: torch.Tensor,
-                nonce: int):
+                nonce: int, regions=None):
     """Seal a plaintext cache [L, B, T, K, hd] (the MoE's
     [units, lpu, B, T, K, hd]) layer by layer under the per-(epoch, layer)
     nonces; one CTR launch per cache (the layers are the items of one
-    batch)."""
+    batch).  ``regions`` ({"k_ct": Region, "v_ct": Region}) seals only a
+    rank's block of each, against the whole cache's counter rows."""
     n = ks.shape[0]
     nk, nv = zip(*(_kv_nonces(nonce, l) for l in range(n)))
     keys = key.reshape(1, 2).expand(n, 2)
-    return (cipher.seal_bits(ks, keys, torch.tensor(nk, device=ks.device)),
-            cipher.seal_bits(vs, keys, torch.tensor(nv, device=vs.device)))
+    regions = regions or {}
+    return tuple(sealed_lib.seal_items(x, keys, torch.tensor(ns,
+                                                             device=x.device),
+                                       regions.get(f))
+                 for x, ns, f in ((ks, nk, "k_ct"), (vs, nv, "v_ct")))
 
 
-def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
+def prefill(params, cfg, batch, max_len: int, seal_ctx=None, blocks=None):
     """Run the full prompt; return (last-token logits, cache at ``max_len``).
 
     batch: {"tokens": int [B, S]} (and ``patch_embeds`` for the VLM, which
     take the cache's first slots).  seal_ctx: (key int32 [2], nonce int)
-    seals the cache — the padding rows too, as the reference does."""
+    seals the cache — the padding rows too, as the reference does.
+    blocks: {field: ``core.sealed.Region``}: the cache holds only these
+    blocks of its fields (a rank of a mesh), sealed against the whole
+    cache's counters."""
     x, _ = _embed_inputs(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
@@ -326,13 +334,20 @@ def prefill(params, cfg, batch, max_len: int, seal_ctx=None):
     cache = {"pos": S}
     if seal_ctx is not None:
         key, nonce = seal_ctx
-        k_ct, v_ct = seal_layers(ks, vs, key, nonce)
+        k_ct, v_ct = seal_layers(ks, vs, key, nonce, blocks)
         cache.update({"k_ct": k_ct, "v_ct": v_ct,
                       "nonce": int(nonce) & common.M32})
     else:
-        cache.update({"k": ks, "v": vs})
+        cache.update(plain_blocks({"k": ks, "v": vs}, blocks))
     logits = logits_of(params, cfg, x[:, -1:, :])
     return logits[:, 0], cache
+
+
+def plain_blocks(fields: dict, blocks=None) -> dict:
+    """Plaintext cache fields, or only their ``blocks`` (copies)."""
+    if blocks is None:
+        return fields
+    return {f: blocks[f].take(x).clone() for f, x in fields.items()}
 
 
 def decode_step(params, cfg, cache, tokens, seal_ctx=None):

@@ -42,7 +42,8 @@ gradient; the clip takes its global norm from them, each leaf once.  The
 update then runs on the rank's own block, against the block's global CTR
 counters, and the new tags cover the row block's whole rows
 (``core/sealed.py::tags_of``).  The verdict is the AND over the ranks:
-one bad tag anywhere poisons the new state on all of them.
+one bad tag anywhere poisons the new state on all of them.  An unsealed
+sharded state (security off) takes the same step without the crypto.
 """
 from __future__ import annotations
 
@@ -119,7 +120,9 @@ def unseal_state_host(state: TrainState, key, sec: SecurityConfig) -> TrainState
     params, ok1 = sealed_lib.unseal_tree(state.params, key)
     mu, ok2 = sealed_lib.unseal_tree(state.mu, key)
     nu, ok3 = sealed_lib.unseal_tree(state.nu, key)
-    if not bool(ok1 & ok2 & ok3):
+    ok = ok1 & ok2 & ok3
+    # a verdict on the meta device (the dry run's) has no value to read
+    if ok.device.type != "meta" and not bool(ok):
         raise RuntimeError("sealed train state failed integrity verification")
     return TrainState(step=state.step, params=params, mu=mu, nu=nu)
 
@@ -219,25 +222,6 @@ def _like(ct):
     return sealed_lib.Block(ct).wrap(torch.empty_like(ct.to_local()))
 
 
-def _whole(x):
-    """A DTensor's whole tensor on every rank (its plaintext blocks
-    all-gathered, FSDP-style); a tensor as it is."""
-    if not isinstance(x, DTensor):
-        return x
-    return sealed_lib.gather_block(x, range(x.dim()))
-
-
-def _block(whole: torch.Tensor, like) -> torch.Tensor:
-    """This rank's block of ``whole``, in ``like``'s (a DTensor's)
-    placements; a tensor as it is."""
-    if not isinstance(like, DTensor):
-        return whole
-    mesh = like.device_mesh
-    offs, sizes = sealed_lib.block_of(tuple(like.shape), mesh,
-                                      like.placements, mesh.get_coordinate())
-    return whole[tuple(slice(o, o + n) for o, n in zip(offs, sizes))]
-
-
 def _mean_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
     """The f32 mean of ``x`` over the ranks along the mesh dims ``dims``
     (all_reduce writes in place)."""
@@ -267,6 +251,35 @@ def _local_batch(batch_stack):
              for i, p in enumerate(v.placements) if isinstance(p, Shard)}
     return {k: v.to_local() if isinstance(v, DTensor) else v
             for k, v in batch_stack.items()}, split
+
+
+def _plain_blocks_update(opt: AdamW, state: TrainState, grads, loss, ok):
+    """AdamW on an unsealed sharded state: each rank updates its own block
+    of every leaf from the whole mean gradients, clipped by their global
+    norm (the sealed update's order, without the crypto)."""
+    step0 = state.step
+    if isinstance(step0, DTensor):
+        step0 = step0.to_local()
+    step, lr, c1, c2 = opt.scalars(step0)
+    scale, gnorm = opt.clip(grads)
+    new = [[], [], []]
+    for p, g, m, v in zip(*map(sealed_lib.tree_leaves,
+                               (state.params, grads, state.mu, state.nu))):
+        gb = (sealed_lib.take_block(g, p).float() * scale).to(g.dtype)
+        out = opt.update_leaf(p.to_local(), gb, m.to_local(), v.to_local(),
+                              lr, c1, c2, p.dim() >= 2)
+        for tree, x, like in zip(new, out, (p, m, v)):
+            tree.append(sealed_lib.wrap(x, like.device_mesh, like.placements,
+                                        like.shape))
+    if isinstance(state.step, DTensor):
+        step = sealed_lib.wrap(step, state.step.device_mesh,
+                               state.step.placements, ())
+    new_state = TrainState(step=step, **{
+        f: sealed_lib.tree_unflatten(state.params, leaves)
+        for f, leaves in zip(("params", "mu", "nu"), new)})
+    return new_state, {"grad_norm": gnorm,
+                       "lr": torch.as_tensor(lr, dtype=torch.float32),
+                       "loss": loss, "seal_ok": ok}
 
 
 def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
@@ -304,13 +317,13 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
                             device=state.step.device)
         sharded = any(isinstance(p, DTensor)
                       for p in sealed_lib.tree_leaves(params))
-        if sharded and not sealed_mode:
-            raise ValueError("a sharded state takes the sealed step")
         if sharded:
             batch_stack, split = _local_batch(batch_stack)
-            sps = sealed_lib.tree_leaves(state.params)
-            mesh = sps[0].ct.device_mesh
-        leaves = [_whole(p).detach().requires_grad_(True)
+            # each leaf's blocks (its ciphertext's, sealed)
+            likes = [st.ct if sealed_mode else st
+                     for st in sealed_lib.tree_leaves(state.params)]
+            mesh = likes[0].device_mesh
+        leaves = [sealed_lib.whole(p).detach().requires_grad_(True)
                   for p in sealed_lib.tree_leaves(params)]
         del params
         ptree = sealed_lib.tree_unflatten(state.params, leaves)
@@ -339,7 +352,7 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
             a, acc[i] = acc[i], None
             g = a.div_(n) if a.dtype == torch.float32 else a.float() / n
             if sharded:
-                g = _mean_over(g, mesh, _grad_dims(sps[i].ct, split))
+                g = _mean_over(g, mesh, _grad_dims(likes[i], split))
             grads.append(g if grad_hook is not None else g.to(p.dtype))
         if grad_hook is not None:
             grads = sealed_lib.tree_leaves(grad_hook(
@@ -349,6 +362,8 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
         leaves = [p.detach() for p in leaves]
         del ptree
 
+        if not sealed_mode and sharded:
+            return _plain_blocks_update(opt, state, grads, loss, ok)
         if not sealed_mode:
             plain = TrainState(step=state.step, params=state.params,
                                mu=state.mu, nu=state.nu)
@@ -366,15 +381,14 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
         if isinstance(step0, DTensor):
             step0 = step0.to_local()
         if sharded:                      # the AND over the ranks
-            bad = (~ok).to(torch.int32)
-            dist.all_reduce(bad)
-            ok = bad == 0
+            ok = sealed_lib.all_ranks_ok(ok)
         step, lr, c1, c2 = opt.scalars(step0)
         scale, gnorm = opt.clip(grads)
         new = [[], [], []]
         sps = sealed_lib.tree_leaves(state.params)
         for i, (sp, sm, sv) in enumerate(zip(sps, mus, nus)):
-            p, g = (_block(x, sp.ct) for x in (leaves[i], grads[i]))
+            p, g = (sealed_lib.take_block(x, sp.ct)
+                    for x in (leaves[i], grads[i]))
             leaves[i] = grads[i] = None
             for acc_tree, st in zip(new, _reseal_update(
                     opt, key, ok, lr, c1, c2, scale, p, g, sp, sm, sv,

@@ -31,7 +31,7 @@ SLICE_MODULES = (
     "repro_torch.launch.mesh", "repro_torch.parallel.sharding",
     "repro_torch.parallel.pipeline", "repro_torch.models.moe_ep",
     "repro_torch.core.overhead", "repro_torch.accel.vta_sim",
-    "repro_torch.accel.workloads")
+    "repro_torch.accel.workloads", "repro_torch.launch.dryrun")
 
 PROBE = """
 import pkgutil, sys
