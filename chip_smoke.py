@@ -21,7 +21,11 @@ From the root of a checkout:  python3 chip_smoke.py
    controls the limit must reject (the last k-step skipped, B's keystream
    one row off), then its entry point ``ops.matmul`` over both products —
    and times kernel, plain version and, for attention, SDPA over the
-   decrypted cache, for the matmul torch.matmul over the plaintext;
+   decrypted cache, for the matmul torch.matmul over the plaintext; and
+   RWKV-6's and Mamba-2's scan kernels, forward and backward, at one
+   layer of rwkv6-3b (B 1, S 4096, H 40, hd 64) and of zamba2-1.2b (H 64,
+   p 64, N 64) against the plain per-token loops within the limits of
+   ``kernels/*_scan/ref.py``, timed in CUDA graphs beside their bounds;
 3. serves granite-3-2b at its full published width and depth (40 layers,
    bf16, random weights from a seeded torch.Generator) through the sealed
    paged engine: two tenant channels, weights sealed under the provider
@@ -78,10 +82,12 @@ From the root of a checkout:  python3 chip_smoke.py
 10. trains every family sealed (the train-families phase) through
    ``launch/steps.py`` (``make_cell``, ``make_train_step_fn``, in place,
    every block recomputed): moonshot-v1-16b-a3b at full width cut to 4 of
-   its 48 layers (30.2 GB of sealed state) and seamless-m4t-large-v2 at
-   full size (20.3 GB), three steps of one 4096-token sequence each
-   (seamless: 4096 frame embeddings into its encoder), finite losses,
-   seal_ok, CTR and MAC launched every step, peak memory, one profiled
+   its 48 layers (30.2 GB of sealed state), seamless-m4t-large-v2 (20.3
+   GB), rwkv6-3b (31.0 GB) and zamba2-1.2b (11.8 GB) at full size, three
+   steps of one 4096-token sequence each (seamless: 4096 frame embeddings
+   into its encoder), finite losses, seal_ok, CTR and MAC launched every
+   step, the scan kernels one forward a layer call and one backward a
+   layer (``scan_launches_per_step``), peak memory, one profiled
    step (busy, idle share, top three kernels), and a flipped bit in a
    sealed mu leaf that poisons the state; every SMOKE config (the ten
    ARCH_IDS, llama4 and llama3 with bf16 moments and accumulators) one
@@ -90,6 +96,11 @@ From the root of a checkout:  python3 chip_smoke.py
    moonshot's gradients of one step: quantize off returns them bit for
    bit, quantize on within half an int8 step, and one pod's seal of the
    payload through the CTR kernel timed in CUDA graphs against its bound;
+   then rwkv6-3b and zamba2-1.2b at full size prefill one 32768-token
+   prompt sealed through ``make_prefill_fn`` (prefill_32k with its batch
+   cut to 1): time, peak memory, one scan forward a layer; and at 2048
+   tokens their last-token logits against the plain loops' on the card
+   within PREFILL_LOGIT_TOL, as published and in float32;
 11. runs the parallel phase in two processes that share the card over
    gloo (``parallel_phase``): first which gloo operations take tensors on
    the card (two throwaway processes), one pipeline hop's seal through the
@@ -140,6 +151,7 @@ printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -210,13 +222,36 @@ FAMILY_B, FAMILY_PROMPT, FAMILY_NEW = 4, 128, 8
 # through launch/steps.py (make_cell, make_train_step_fn; every block
 # recomputed), resealed in place, one train_4k sequence of 4096 tokens a
 # step (global batch 256 -> 1), three steps, a profiled one, a tampered one
-TRAIN_FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "seamless-m4t-large-v2")
+TRAIN_FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "seamless-m4t-large-v2",
+                      "rwkv6-3b", "zamba2-1.2b")
 # depth cut: the sealed state is 10 bytes a parameter (bf16 weights, f32
 # mu and nu) and a step holds the plaintext weights and the f32 gradient
 # sums beside it: moonshot at 4 of its 48 layers is 3.02 B parameters,
 # 30.2 GB sealed; at 48 it would be 16 B, 160 GB
 TRAIN_FAMILY_CUTS = {"moonshot-v1-16b-a3b": {"n_layers": 4}}
 TRAIN_FAMILY_STEPS = 3
+# RWKV-6's and Mamba-2's scan kernels against their plain versions at one
+# layer of rwkv6-3b (B 1, H 40, hd 64) and of zamba2-1.2b (B 1, H 64, p 64,
+# N 64) over one train_4k sequence, forward and backward, within the limits
+# of kernels/*_scan/ref.py (outputs 1e-5 of their largest entry + 1e-6,
+# gradients 1e-4 of theirs), timed in CUDA graphs
+SCAN_SEQ = 4096
+# the long prefill of the recurrent families: prefill_32k's 32768-token
+# prompt with its batch cut from 32 to 1, sealed, through make_prefill_fn;
+# at 2048 tokens its last-token logits against the plain per-token loops'
+# on the card, as published (bfloat16) and in float32
+LONG_PREFILL_ARCHS = ("rwkv6-3b", "zamba2-1.2b")
+LONG_PREFILL_LEN, LONG_PREFILL_CHECK = 32768, 2048
+# the limits of that comparison, from tools/prefill_logit_spread.py on the
+# H100 (seeds 0-3; PERF.md §6).  In float32 the kernels' sums, in another
+# order than the loops', move the logits by at most 4.0e-5 (rwkv6-3b) and
+# 1.7e-5 (zamba2-1.2b); a wrong scan (no u bonus, y read before the
+# token's input, a decay applied a token late) by 3.0e-3 or more: 4e-4
+# lies between.  In bfloat16 that rounding grows through the layers to
+# 0.168 and 0.066, and rwkv6-3b's wrong scans read 0.166-0.297: there the
+# limit, twice the largest sound reading, guards against gross faults only
+PREFILL_LOGIT_TOL = {"bfloat16": {"rwkv6-3b": 0.35, "zamba2-1.2b": 0.15},
+                     "float32": {"rwkv6-3b": 4e-4, "zamba2-1.2b": 4e-4}}
 # the SMOKE configs: one sealed step of two microbatches of 2 x 16 tokens
 # on the card and on the CPU; the cross-pod hook over moonshot's gradients
 SMOKE_TRAIN = dict(seq=16, batch=2, accum=2)
@@ -631,9 +666,27 @@ def tamper(eng, tenants, provider, vocab):
     return {"page": page_poisoned, "weight": sorted(ev["poisoned"])}, profile
 
 
+def kernel_rows(prof) -> dict:
+    """{kernel name: [launches, device ms]} of a finished torch.profiler
+    run, summed straight from its raw events (the device's activities:
+    kernels, copies, sets).  It leaves out the tree of operator events
+    that ``key_averages`` builds first, whose post-processing of a train
+    step's ~100k launches took 30-80 s; the device rows it would give are
+    the same."""
+    from torch.autograd import DeviceType
+
+    rows: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            r = rows.setdefault(e.name(), [0, 0.0])
+            r[0] += 1
+            r[1] += e.duration_ns() / 1e6
+    return rows
+
+
 def profile_step(step):
-    """One decode step under torch.profiler: wall ms, device-busy ms (sum of
-    the kernels' device times), launches and the top kernels by device
+    """One step under torch.profiler: wall ms, device-busy ms (sum of the
+    kernels' device times), launches and the top kernels by device
     time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -644,14 +697,14 @@ def profile_step(step):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    rows = kernel_rows(prof)
+    busy_ms = sum(ms for _, ms in rows.values())
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "kernel_launches": sum(e.count for e in events),
-            "top": [{"op": e.key[:60], "device_ms": e.self_device_time_total
-                     / 1e3, "count": e.count} for e in top]}
+            "kernel_launches": sum(n for n, _ in rows.values()),
+            "top": [{"op": name[:60], "device_ms": ms, "count": n}
+                    for name, (n, ms) in top]}
 
 
 def attention_bound(B, K, G, hd, t_valid, verify):
@@ -1340,27 +1393,34 @@ def train_family_phase(arch: str) -> dict:
                 for k, v in data.microbatches_at(i, 1, extra).items()}
 
     step = steps.make_train_step_fn(cell, in_place=True)
+    scans = scan_launches_per_step(cfg)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     out_steps = []
     for i in range(TRAIN_FAMILY_STEPS):
         b = batch(i)
         c0, m0 = ctr_ops.ctr_xor.launches, mac_ops.mac_tags.launches
+        k0 = read_launches()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         state, m = step(state, b)
         torch.cuda.synchronize()
+        k1 = read_launches()
         out_steps.append(dict(wall_s=time.perf_counter() - t1,
                               loss=float(m["loss"]),
                               grad_norm=float(m["grad_norm"]),
                               seal_ok=bool(m["seal_ok"]),
                               ctr=ctr_ops.ctr_xor.launches - c0,
-                              mac=mac_ops.mac_tags.launches - m0))
+                              mac=mac_ops.mac_tags.launches - m0,
+                              scans={k: k1[k] - k0[k] for k in scans}))
         s_ = out_steps[-1]
         check(np.isfinite(s_["loss"]) and s_["seal_ok"],
               f"{arch} train step {i}: {s_}")
         check(s_["ctr"] > 0 and s_["mac"] > 0,
               f"{arch} train step {i} launched no kernel: {s_}")
+        check(s_["scans"] == scans,
+              f"{arch} train step {i} launched the scans {s_['scans']}, "
+              f"not {scans}")
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     check(int(state.step) == TRAIN_FAMILY_STEPS, f"state at {state.step}")
@@ -1370,7 +1430,11 @@ def train_family_phase(arch: str) -> dict:
     def one_step():
         held["state"], _ = step(held["state"], batch(TRAIN_FAMILY_STEPS))
 
+    t_prof = time.perf_counter()
     profile = profile_step(one_step)
+    # the profiler's own time: the trace's post-processing beside the step
+    profile["overhead_s"] = (time.perf_counter() - t_prof
+                             - profile["wall_ms"] / 1e3)
     profile["top"] = profile["top"][:3]
     grads = []
 
@@ -1399,6 +1463,316 @@ def train_family_phase(arch: str) -> dict:
                 reduced=train_family_reduced(arch), tokens_per_step=seq,
                 grads=grads, remat=cfg.remat,
                 moments=cell.opt.state_dtype)
+
+
+def scan_launches_per_step(cfg) -> dict:
+    """The scan kernels a train step of one sequence launches: a forward
+    per layer call and a backward per layer, and one more forward per
+    layer that a remat unit runs again (RWKV-6: every block; Zamba2: every
+    full group of attn_every layers, not the tail group)."""
+    L = cfg.n_layers
+    if cfg.family == "rwkv":
+        again, kind = (L if cfg.remat != "none" else 0), "wkv6"
+    elif cfg.family == "hybrid":
+        ae = cfg.hybrid.attn_every
+        again, kind = ((L // ae) * ae if cfg.remat != "none" else 0), "ssd"
+    else:
+        return {}
+    return {f"{kind}_forward": L + again, f"{kind}_backward": L}
+
+
+def scan_shapes() -> dict:
+    """One layer's scan at the published configs over SCAN_SEQ tokens:
+    {"wkv6": rwkv6-3b's (B, S, H, hd), "ssd": zamba2-1.2b's (B, S, H, p,
+    N)}."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+
+    rw = configs.get_config("rwkv6-3b")
+    hd = rw.rwkv.head_dim
+    _, H, P, N = ssm._m2_dims(configs.get_config("zamba2-1.2b"))
+    return {"wkv6": (1, SCAN_SEQ, rw.d_model // hd, hd),
+            "ssd": (1, SCAN_SEQ, H, P, N)}
+
+
+def scan_bound(kind: str, backward: bool, shape) -> dict:
+    """Bytes, FLOPs and bound of one scan call: each of the function's own
+    inputs read and each output written once, and the FLOPs of the op's
+    formula at the float32 rate outside the tensor cores (67 TFLOP/s),
+    whichever is slower.  The state checkpoints (one every CHUNK tokens,
+    the kernels' own choice) are not the function's: their bytes, which
+    the training forward writes and the backward reads, come apart as
+    ``checkpoint_bytes``, with the bound that counts them."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.wkv6_scan import ops as wkv_ops
+
+    if kind == "wkv6":
+        B, S, H, hd = shape
+        x, st = B * S * H * hd, B * H * hd * hd
+        ck = B * wkv_ops.ref.n_chunks(S) * H * hd * hd
+        # r, k, v, w, u, dy, the final state's gradient -> dr, dk, dv, dw,
+        # du per (b, h), ds0; r, k, v, w, u, s0 -> y, s_out
+        words = (5 * x + H * hd + st + 4 * x + B * H * hd + st
+                 if backward else 4 * x + H * hd + st + x + st)
+        flops = (wkv_ops.backward_flops if backward
+                 else wkv_ops.forward_flops)(*shape)
+    else:
+        B, S, H, P, N = shape
+        x, a, bc = B * S * H * P, B * S * H, B * S * N
+        st = B * H * P * N
+        ck = B * ssd_ops.ref.n_chunks(S) * H * P * N
+        # a, dtx, B, C, dy, dh -> da, ddtx, dB and dC per head, dh0;
+        # a, dtx, B, C, h0 -> y, h_out
+        words = (a + 2 * x + 2 * bc + st + a + x + 2 * B * S * H * N + st
+                 if backward else a + x + 2 * bc + st + x + st)
+        flops = (ssd_ops.backward_flops if backward
+                 else ssd_ops.forward_flops)(*shape)
+    to = flops / F32_FLOPS_PER_S * 1e3
+    tb = 4 * words / HBM_BYTES_PER_S * 1e3
+    tc = 4 * (words + ck) / HBM_BYTES_PER_S * 1e3
+    return {"bytes": 4 * words, "flops": flops, "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "checkpoint_bytes": 4 * ck,
+            "bound_with_checkpoints_ms": max(tc, to)}
+
+
+def _errs(got, want, rtol: float, atol: float = 0.0) -> tuple[float, bool]:
+    """(largest absolute error over the outputs, all within rtol of each
+    output's largest entry plus atol)."""
+    errs = [((g - w).abs().max().item(), w.abs().max().item())
+            for g, w in zip(got, want)]
+    return max(e for e, _ in errs), all(e <= rtol * m + atol
+                                        for e, m in errs)
+
+
+def scan_checks() -> list:
+    """The four scan kernels against their plain versions on the card at
+    ``scan_shapes()``, inputs from SEED (decays and gradients at the
+    models' scales): forward with checkpoints, then the backward from the
+    plain version's checkpoints, each output within the stated limits;
+    the kernels timed in CUDA graphs (the forward without checkpoints, as
+    prefill runs it, and with them, as training does), the plain versions
+    with CUDA events."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.wkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.wkv6_scan import ref as wkv_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    shapes = scan_shapes()
+    B, S, H, hd = shapes["wkv6"]
+    wins = (n(B, S, H, hd), n(B, S, H, hd), n(B, S, H, hd),
+            torch.exp(-torch.exp(n(B, S, H, hd) - 3)), 0.1 * n(H, hd),
+            n(B, H, hd, hd))
+    wgrad = (n(B, S, H, hd), n(B, H, hd, hd))
+    B, S, H, P, N = shapes["ssd"]
+    sins = (torch.exp(-torch.nn.functional.softplus(n(B, S, H))),
+            n(B, S, H, P), n(B, S, N), n(B, S, N), n(B, H, P, N))
+    sgrad = (n(B, S, H, P), n(B, H, P, N))
+    cases = (("wkv6", wins, wgrad, wkv_ops.wkv6_forward,
+              wkv_ops.wkv6_backward, wkv_ref.wkv6_forward_ref,
+              wkv_ref.wkv6_backward_ref, wkv_ref, 5,
+              "src/repro/models/rwkv.py:141-152"),
+             ("ssd", sins, sgrad, ssd_ops.ssd_forward, ssd_ops.ssd_backward,
+              ssd_ref.ssd_forward_ref, ssd_ref.ssd_backward_ref, ssd_ref, 4,
+              "src/repro/models/ssm.py:95-104"))
+    out = []
+    for kind, ins, grads, fwd, bwd, fwd_ref, bwd_ref, ref, n_in, at in cases:
+        got = fwd(*ins, save=True)
+        want = fwd_ref(*ins, save=True)
+        f_err, f_ok = _errs(got, want, ref.FWD_RTOL, ref.FWD_ATOL)
+        check(f_ok, f"{kind}_forward disagrees with its plain version: "
+                    f"max abs err {f_err}")
+        gk = bwd(*ins[:n_in], want[2], *grads)
+        gp = bwd_ref(*ins[:n_in], want[2], *grads)
+        b_err, b_ok = _errs(gk, gp, ref.GRAD_RTOL)
+        check(b_ok, f"{kind}_backward disagrees with its plain version: "
+                    f"max abs err {b_err}")
+        del got, gk, gp
+        shape = shapes[kind]
+        fb, bb = scan_bound(kind, False, shape), scan_bound(kind, True, shape)
+        ck = want[2]
+        out.append(dict(
+            name=f"{kind}_forward", shape=shape, max_abs_err=f_err,
+            tolerance={"rtol": ref.FWD_RTOL, "atol": ref.FWD_ATOL},
+            ms=graph_ms(lambda: fwd(*ins)),
+            ms_with_checkpoints=graph_ms(lambda: fwd(*ins, save=True)),
+            plain_ms=device_ms(lambda: fwd_ref(*ins), reps=1),
+            replaces=at, **fb))
+        out.append(dict(
+            name=f"{kind}_backward", shape=shape, max_abs_err=b_err,
+            tolerance={"rtol": ref.GRAD_RTOL, "of": "each output's largest "
+                                                    "entry"},
+            ms=graph_ms(lambda: bwd(*ins[:n_in], ck, *grads)),
+            plain_ms=device_ms(lambda: bwd_ref(*ins[:n_in], ck, *grads),
+                               reps=1),
+            replaces=at, **bb))
+        del ins, grads, want, ck
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_prefill_reduced(arch: str) -> dict:
+    """The long prefill's cuts: {what: [published, run]}."""
+    from repro_torch.models.config import PREFILL_32K
+
+    return {"global_batch": [PREFILL_32K.global_batch, 1],
+            "seq_len": [PREFILL_32K.seq_len, LONG_PREFILL_LEN]}
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """The models' scans through the plain per-token loops (``ref.py``) on
+    the card: the yardstick the kernels' main path is held against."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.wkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.wkv6_scan import ref as wkv_ref
+
+    saved = wkv_ops.wkv6_scan, ssd_ops.ssd_scan
+    wkv_ops.wkv6_scan = lambda *a: wkv_ref.wkv6_forward_ref(*a)[:2]
+    ssd_ops.ssd_scan = lambda *a: ssd_ref.ssd_forward_ref(*a)[:2]
+    try:
+        yield
+    finally:
+        wkv_ops.wkv6_scan, ssd_ops.ssd_scan = saved
+
+
+def _sealed_prefill_cell(arch: str, dtype: str):
+    """prefill_32k's cell of ``arch`` with its weights and activations in
+    ``dtype`` (the configs' ``dtype`` and ``param_dtype``), the weights
+    from SEED, sealed, and the LONG_PREFILL_LEN-token prompt from SEED + 5:
+    (cell, sealed weights, prompt)."""
+    from repro_torch.core import sealed as sealed_lib
+    from repro_torch.launch import steps
+
+    cell = steps.make_cell(arch, "prefill_32k",
+                           overrides={"dtype": dtype, "param_dtype": dtype})
+    cfg = cell.cfg
+    params = cell.model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                             cfg, "cuda")
+    sealed = sealed_lib.seal_tree(params, cell.key, cell.sec.weights, 1 << 8)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    tokens = torch.randint(0, cfg.vocab, (1, LONG_PREFILL_LEN), generator=g,
+                           device="cuda", dtype=torch.int32)
+    return cell, sealed, tokens
+
+
+def _prefill_fn(cell, n_tok: int):
+    import dataclasses
+
+    from repro_torch.launch import steps
+
+    cell.shape = dataclasses.replace(cell.shape, seq_len=n_tok,
+                                     global_batch=1)
+    return steps.make_prefill_fn(cell)
+
+
+def _against_plain_loops(arch, dtype, prefill, sealed, tokens,
+                         logits) -> dict:
+    """The same prefill of LONG_PREFILL_CHECK tokens through the plain
+    loops: its last-token logits' largest difference from ``logits`` (the
+    kernels'), held to PREFILL_LOGIT_TOL."""
+    with plain_scans():
+        t1 = time.perf_counter()
+        plain, _ = prefill(sealed, {"tokens": tokens[:, :LONG_PREFILL_CHECK]})
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+    diff = (logits.float() - plain.float()).abs().max().item()
+    limit = PREFILL_LOGIT_TOL[dtype][arch]
+    check(diff <= limit, f"{arch}: {dtype} prefill logits through the "
+                         f"kernels differ from the plain loops' by {diff} "
+                         f"(limit {limit})")
+    return {"diff": diff, "limit": limit, "plain_wall_s": plain_s}
+
+
+def long_prefill_phase(arch: str) -> dict:
+    """One prompt of LONG_PREFILL_LEN tokens sealed through
+    ``steps.make_prefill_fn`` (full-size weights from SEED, sealed; the
+    decode state sealed): wall time, peak memory and launches (one scan
+    forward a layer, no backward); finite last-token logits.  Then at
+    LONG_PREFILL_CHECK tokens the logits through the kernels against the
+    plain loops' on the card, within PREFILL_LOGIT_TOL: as published
+    (bfloat16), and with weights and activations in float32."""
+    t0 = time.perf_counter()
+    cell, sealed, tokens = _sealed_prefill_cell(arch, "bfloat16")
+    cfg = cell.cfg
+    setup_s = time.perf_counter() - t0
+    out = {"arch": arch, "setup_s": setup_s,
+           "reduced": long_prefill_reduced(arch)}
+    want = {k: (cfg.n_layers if k.endswith("forward") else 0)
+            for k in scan_launches_per_step(cfg)}
+    for n_tok in (LONG_PREFILL_LEN, LONG_PREFILL_CHECK):
+        prefill = _prefill_fn(cell, n_tok)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t1 = time.perf_counter()
+        logits, state = prefill(sealed, {"tokens": tokens[:, :n_tok]})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = read_launches()
+        finite = bool(torch.isfinite(logits).all())
+        check(tuple(logits.shape) == (1, cfg.vocab) and finite,
+              f"{arch}: prefill of {n_tok} tokens gave logits "
+              f"{tuple(logits.shape)}, finite {finite}")
+        check({k: launches[k] for k in want} == want,
+              f"{arch}: prefill of {n_tok} tokens launched {launches}")
+        check(launches["ctr_cipher"] > 0 and launches["tree_mac"] > 0
+              and "nonce" in state,
+              f"{arch}: prefill of {n_tok} tokens did not run sealed")
+        out[n_tok] = {"wall_s": wall, "launches": launches,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+        del state
+    out["logits"] = {"bfloat16": _against_plain_loops(
+        arch, "bfloat16", prefill, sealed, tokens, logits)}
+    del sealed, tokens, logits
+    cell, sealed, tokens = _sealed_prefill_cell(arch, "float32")
+    prefill = _prefill_fn(cell, LONG_PREFILL_CHECK)
+    logits, _ = prefill(sealed, {"tokens": tokens[:, :LONG_PREFILL_CHECK]})
+    out["logits"]["float32"] = _against_plain_loops(
+        arch, "float32", prefill, sealed, tokens, logits)
+    del sealed, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_long_prefill(f: dict, card: str) -> None:
+    arch, n, m = f["arch"], LONG_PREFILL_LEN, LONG_PREFILL_CHECK
+    r, c = f[n], f[m]
+    print(f"long-prefill {arch}: {n} tokens sealed in {r['wall_s']:.3f} s = "
+          f"{n / r['wall_s']:.0f} tok/s, peak memory "
+          f"{r['peak_bytes'] / 2**30:.2f} GiB, launches "
+          f"{json.dumps(r['launches'])}; set-up {f['setup_s']:.1f} s; "
+          f"reduced {json.dumps(f['reduced'])}; {card}", flush=True)
+    diffs = "; ".join(
+        f"{dt} {d['diff']:.4g} (limit {d['limit']}; plain loops "
+        f"{d['plain_wall_s']:.3f} s)" for dt, d in f["logits"].items())
+    print(f"long-prefill {arch}: {m} tokens in {c['wall_s']:.3f} s through "
+          f"the kernels; last-token logits max abs diff from the plain "
+          f"loops' {diffs}; {card}", flush=True)
+
+
+def print_scan_checks(cases: list, card: str) -> None:
+    for c in cases:
+        ck = (f"; with checkpoints {c['ms_with_checkpoints']:.4f} ms"
+              if "ms_with_checkpoints" in c else "; reading checkpoints")
+        print(f"check {c['name']} {list(c['shape'])}: max abs err "
+              f"{c['max_abs_err']:.3g} (limit {json.dumps(c['tolerance'])}),"
+              f" kernel {c['ms']:.4f} ms in a CUDA graph, plain "
+              f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}: {c['bytes']} bytes, {c['flops']} FLOPs)"
+              f"{ck}: + {c['checkpoint_bytes']} checkpoint bytes, bound "
+              f"{c['bound_with_checkpoints_ms']:.4f} ms; {card}",
+              flush=True)
 
 
 def ctr_payload_bound(shape, dtype) -> dict:
@@ -1939,7 +2313,9 @@ def print_train_family(f: dict, card: str) -> None:
         print(f"train-families {arch}: step {i} loss {st['loss']:.4f}, grad "
               f"norm {st['grad_norm']:.4f}, seal_ok {st['seal_ok']}, "
               f"{st['wall_s']:.3f} s = {n / st['wall_s']:.0f} tok/s, "
-              f"launches ctr {st['ctr']} mac {st['mac']}", flush=True)
+              f"launches ctr {st['ctr']} mac {st['mac']}"
+              + (f" scans {json.dumps(st['scans'])}" if st.get("scans")
+                 else ""), flush=True)
     p = f["profile"]
     print(f"train-families {arch}: {f['params']} params, sealed state "
           f"{f['sealed_bytes']} bytes, peak memory "
@@ -1951,7 +2327,8 @@ def print_train_family(f: dict, card: str) -> None:
     print(f"profile: one {arch} train step {p['wall_ms']:.1f} ms wall = "
           f"{n / p['wall_ms'] * 1e3:.0f} tok/s, {p['device_busy_ms']:.1f} ms "
           f"busy, idle {p['device_idle_share']:.3f}, "
-          f"{p['kernel_launches']} kernel rows; top three "
+          f"{p['kernel_launches']} kernel rows (the profiler's own "
+          f"processing {p.get('overhead_s', 0):.1f} s); top three "
           f"{json.dumps(p['top'])}", flush=True)
 
 
@@ -2143,10 +2520,16 @@ def _counted():
     from repro_torch.kernels.ctr_cipher import ops as ctr_ops
     from repro_torch.kernels.sealed_attention import ops as sa_ops
     from repro_torch.kernels.sealed_matmul import ops as smm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.tree_mac import ops as mac_ops
+    from repro_torch.kernels.wkv6_scan import ops as wkv_ops
     return {"ctr_cipher": ctr_ops.ctr_xor, "tree_mac": mac_ops.mac_tags,
             "sealed_attention": sa_ops.sealed_decode_attention,
-            "sealed_matmul": smm_ops.sealed_matmul}
+            "sealed_matmul": smm_ops.sealed_matmul,
+            "wkv6_forward": wkv_ops.wkv6_forward,
+            "wkv6_backward": wkv_ops.wkv6_backward,
+            "ssd_forward": ssd_ops.ssd_forward,
+            "ssd_backward": ssd_ops.ssd_backward}
 
 
 def zero_launches() -> None:
@@ -3304,6 +3687,10 @@ def main() -> int:
           f"{json.dumps(mm['controls'])}; entry point over the MLP products "
           f"launched the kernel {mm['launches']} times", flush=True)
     torch.cuda.empty_cache()
+    t_scan = time.perf_counter()
+    scans = scan_checks()
+    print_scan_checks(scans, card)
+    new_work = {"scan checks": time.perf_counter() - t_scan}
 
     # 4. serve ------------------------------------------------------------
     profiler = Profiler(chunk_words=CHUNK_WORDS)
@@ -3468,8 +3855,11 @@ def main() -> int:
     t_tf = time.perf_counter()
     tfs = {}
     for arch in TRAIN_FAMILY_ARCHS:
+        t_arch = time.perf_counter()
         tfs[arch] = train_family_phase(arch)
         print_train_family(tfs[arch], card)
+        if arch in LONG_PREFILL_ARCHS:
+            new_work[f"train {arch}"] = time.perf_counter() - t_arch
     smoke_tf = smoke_train_families()
     for arch, r in smoke_tf.items():
         print(f"train-families smoke {arch}: one sealed step on cuda == cpu"
@@ -3500,6 +3890,20 @@ def main() -> int:
     print(f"train-families: {len(tfs)} configurations, {len(smoke_tf)} SMOKE"
           f" configs and the cross-pod hook in "
           f"{time.perf_counter() - t_tf:.1f} s", flush=True)
+
+    # 11b. the recurrent families' long sealed prefill ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    longs = {}
+    for arch in LONG_PREFILL_ARCHS:
+        t_arch = time.perf_counter()
+        longs[arch] = long_prefill_phase(arch)
+        print_long_prefill(longs[arch], card)
+        new_work[f"prefill {arch}"] = time.perf_counter() - t_arch
+    print(f"recurrences: the scans' new work took "
+          f"{sum(new_work.values()):.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in new_work.items())})",
+          flush=True)
 
     # 12. two processes on the one card over gloo: expert parallelism, the
     # sealed pipeline, the elastic restore ---
@@ -3690,6 +4094,35 @@ def main() -> int:
             "launches_per_step": f["steps"][0][
                 "ctr" if k["name"] == "ctr_cipher" else "mac"]}
             for arch, f in tfs.items()}
+    # RWKV-6's and Mamba-2's scans: one layer's call at scan_shapes();
+    # launches of the recurrent families' train steps and long prefills
+    scan_paths = {**{f"train {a}": tfs[a]["launches"]
+                     for a in LONG_PREFILL_ARCHS},
+                  **{f"prefill {a} {LONG_PREFILL_LEN}": longs[a][
+                      LONG_PREFILL_LEN]["launches"]
+                     for a in LONG_PREFILL_ARCHS}}
+    for c in scans:
+        name = c["name"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name.split('_')[0]}_scan.cu",
+            "replaces": f"{c['replaces']} (jax.lax.scan; no Pallas kernel)",
+            "launches": sum(p.get(name, 0) for p in scan_paths.values()),
+            "launches_by_path": {p: v.get(name, 0)
+                                 for p, v in scan_paths.items()},
+            "launches_per_train_step": {
+                a: tfs[a]["steps"][0]["scans"].get(name, 0)
+                for a in LONG_PREFILL_ARCHS},
+            "max_abs_err": c["max_abs_err"], "tolerance": c["tolerance"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": None,
+            "checkpoints": {
+                k: c[k] for k in ("ms_with_checkpoints", "checkpoint_bytes",
+                                  "bound_with_checkpoints_ms") if k in c},
+            "workload": f"one layer's call at {list(c['shape'])}; ms in a "
+                        "CUDA graph; the bound counts the function's own "
+                        "operands, the checkpoints' bytes apart"})
     lay = fams["qwen3-4b"]["fused"]["layer"]
     kernels[2]["families"] = {"qwen3-4b fused": {
         "layer_ms": lay["ms"], "bound_ms": lay["bound_ms"],

@@ -11,4 +11,10 @@ launches the kernel or raises.  ``<wrapper>.launches`` counts launches.
 The CTR and MAC wrappers also take meta tensors (the dry run): they return
 empty results and count, in ``<wrapper>.meta_launches``, the launches the
 card would make.
+
+``wkv6_scan`` and ``ssd_scan`` (RWKV-6's and Mamba-2's recurrences, forward
+and backward) replace no Pallas kernel: the reference runs them as a
+device-side ``jax.lax.scan``.  Their wrappers are ``torch.library`` custom
+ops with autograd, a meta path and a FLOP formula, so the dry run counts
+them whole.
 """

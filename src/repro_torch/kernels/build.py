@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("ctr_cipher", "tree_mac", "sealed_attention", "sealed_matmul")
+SOURCES = ("ctr_cipher", "tree_mac", "sealed_attention", "sealed_matmul",
+           "wkv6_scan", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

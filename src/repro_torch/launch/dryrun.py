@@ -23,17 +23,15 @@ reference's compile does.  Each row records, for one rank:
   run, its arguments included (``Tally``, as
   ``torch.distributed._tools.mem_tracker`` counts them), in place of XLA's
   ``memory_analysis``;
-* ``flops``: matmul and attention FLOPs only (``Tally``, by
-  ``torch.utils.flop_counter``'s formulas);
+* ``flops``: the FLOPs of the matmuls, the attention and RWKV-6's and
+  Mamba-2's scans (``Tally``, by ``torch.utils.flop_counter``'s formulas
+  and the formulas the scan ops register, ``kernels/*_scan/ops.py``), the
+  scans over every token;
 * ``collectives``: ``{op: {count, bytes}}`` of the collectives the port
   calls (bytes of each call's output), under the reference's HLO names,
   and ``collective_link_bytes`` by the reference's ring formula;
 * ``ctr_launches`` / ``mac_launches``: the CTR and MAC kernel launches the
-  card would make (the wrappers' ``meta_launches``);
-* ``recurrence_tokens_run``, ``flops_is_lower_bound`` and
-  ``peak_is_lower_bound`` in RWKV-6's and Zamba2's train and prefill rows:
-  their per-token loops run one token on meta, so the FLOPs and the peak
-  leave out the other tokens' recurrence (a decode step has one token).
+  card would make (the wrappers' ``meta_launches``).
 
 The reference's ``hlo_collectives`` (the compiled collective schedule) has
 no counterpart: the port runs eagerly and these are its calls.
@@ -80,6 +78,7 @@ from . import steps
 from .mesh import make_production_mesh
 
 DEFAULT_OUT = "results/dryrun_torch.jsonl"
+FLOPS_COUNTED = "matmul, attention and the RWKV-6 / Mamba-2 scans"
 
 # torch.distributed's collectives the port calls -> the reference's HLO names
 _HLO_NAMES = {"all_gather_into_tensor": "all-gather",
@@ -136,11 +135,11 @@ class CollectiveCount:
 
 
 class Tally(TorchDispatchMode):
-    """While active: the FLOPs of the matmul and attention ops (the
-    formulas of ``torch.utils.flop_counter``) and the bytes of the meta
-    storages alive, with their peak.  A storage counts from the op that
-    makes it until it is freed; ``hold`` counts tensors made before (the
-    step's arguments).  One dispatch mode in place of
+    """While active: the FLOPs of the matmul, attention and scan ops (the
+    formulas in ``torch.utils.flop_counter``'s registry) and the bytes of
+    the meta storages alive, with their peak.  A storage counts from the
+    op that makes it until it is freed; ``hold`` counts tensors made
+    before (the step's arguments).  One dispatch mode in place of
     ``FlopCounterMode`` and ``mem_tracker.MemTracker``, with the same
     FLOPs and peak (``tools/dryrun_tally.py`` compares them on a cell) in
     about half their time."""
@@ -324,13 +323,7 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str,
             del out
     row["peak_bytes_per_device"] = float(tally.peak)
     row["flops"] = float(tally.flops)
-    row["flops_counted"] = "matmul and attention only"
-    if cell.cfg.family in ("rwkv", "hybrid") and cell.shape.kind != "decode":
-        # RWKV-6's and Mamba-2's per-token loops run one token on meta
-        # (rwkv.time_mix, ssm.m2_forward): the other tokens' products and
-        # the states autograd saves for them are not in the row
-        row.update(recurrence_tokens_run=1, flops_is_lower_bound=True,
-                   peak_is_lower_bound=True)
+    row["flops_counted"] = FLOPS_COUNTED
     row["collectives"] = coll.stats
     row["collective_link_bytes"] = collective_link_bytes(coll.stats)
     row["ctr_launches"] = ctr_ops.ctr_xor.meta_launches - c0

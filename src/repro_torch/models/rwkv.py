@@ -6,9 +6,10 @@ Per head (dim hd), the WKV state S is [hd_k, hd_v]:
     y_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
 with w_t = exp(-exp(w_base + LoRA_w(x~_t))) the data-dependent decay,
 token-shift mixing x~ = lerp(x_t, x_{t-1}, mu + LoRA(x)), and a
-channel-mix FFN (squared ReLU).  The recurrence runs in float32 as a Python
-loop over time, the layer scan as a Python loop over layers; decode carries
-(S, shift states), O(1) state.
+channel-mix FFN (squared ReLU).  The recurrence runs in float32 through
+``kernels.wkv6_scan`` (a CUDA scan kernel with its backward on the card,
+the plain per-token loop on the CPU), the layer scan as a Python loop over
+layers; decode carries (S, shift states), O(1) state.
 
 Sealed serving: the state is resealed whole every decode step under the
 bumped nonce n + 1 (``wkv`` at nonce 4n, ``tm_x`` 4n + 1, ``cm_x`` 4n + 2,
@@ -24,6 +25,7 @@ from ..core import cipher
 from ..core import sealed as sealed_lib
 from ..core.channel import resolve_device
 from ..kernels import common
+from ..kernels.wkv6_scan import ops as wkv_ops
 from . import layers as L
 from . import transformer as TF
 
@@ -146,16 +148,9 @@ def time_mix(p, cfg, x, prev_x, state):
     w_log = p["w_base"].float() + \
         torch.tanh(m["w"] @ p["w_lora_a"]).float() @ p["w_lora_b"].float()
     w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, hd)            # in (0,1)
-    u = p["u"].float()[None, :, :, None]
-    ys = []
-    # on the meta device (the dry run) one token gives every shape: a meta
-    # op costs ~0.3 ms, so the loop would take hours at 32k tokens
-    n = 1 if x.device.type == "meta" else S
-    for t in range(n):
-        kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
-        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + u * kv))
-        state = w[:, t, :, :, None] * state + kv
-    y = torch.stack(ys, dim=1).expand(B, S, H, hd)
+    # the WKV recurrence: one scan op (the card's kernel, the plain loop on
+    # the CPU, shapes only on the meta device)
+    y, state = wkv_ops.wkv6_scan(r, k, v, w, p["u"].float(), state)
     y = y.reshape(B, S, D).to(x.dtype)
     y = L.rms_norm(y, p["ln_x"], cfg.norm_eps)                       # per channel
     return (y * g) @ p["wo"], x[:, -1, :], state

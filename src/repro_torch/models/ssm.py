@@ -6,7 +6,8 @@ Mamba-2 head recurrence (scalar decay per head, state N):
     y_t = h_t . C_t + D * x_t
 with a_t = exp(-softplus(dt_t) * exp(A_log)), a causal depthwise conv over
 the (x, B, C) stream, and a silu(z) output gate.  The recurrence runs in
-float32 as a Python loop over time.
+float32 through ``kernels.ssd_scan`` (a CUDA scan kernel with its backward
+on the card, the plain per-token loop on the CPU).
 
 Zamba2 hybrid: a stack of Mamba-2 blocks with ONE shared full-attention
 transformer block (its own weights, reused) invoked before every group of
@@ -27,6 +28,7 @@ from ..core import cipher
 from ..core import sealed as sealed_lib
 from ..core.channel import resolve_device
 from ..kernels import common
+from ..kernels.ssd_scan import ops as ssd_ops
 from . import layers as L
 from . import transformer as TF
 
@@ -94,15 +96,10 @@ def m2_forward(p, cfg, x, ssm_state=None, conv_state=None):
         ssm_state = torch.zeros((B, H, hp, N), dtype=torch.float32,
                                 device=x.device)
     dtx = dt[..., None] * xh                                        # [B,S,H,p]
-    h, ys = ssm_state, []
-    # on the meta device (the dry run) one token gives every shape (as in
-    # rwkv.time_mix)
-    for t in range(1 if x.device.type == "meta" else S):
-        h = (a[:, t, :, None, None] * h
-             + torch.einsum("bhp,bn->bhpn", dtx[:, t], Bf[:, t]))
-        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
-    y = torch.stack(ys, dim=1).expand(B, S, H, hp) \
-        + p["D"][None, None, :, None] * xh
+    # the SSD recurrence: one scan op (the card's kernel, the plain loop on
+    # the CPU, shapes only on the meta device)
+    y, h = ssd_ops.ssd_scan(a, dtx, Bf, Cf, ssm_state)
+    y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(B, S, d_inner).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["out_proj"], h, conv_state

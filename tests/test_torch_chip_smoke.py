@@ -32,6 +32,46 @@ def test_device_busy_counts_each_kernel_once():
     assert sum(e.self_device_time_total for e in kept) == 8.0
 
 
+def _raw(device_type, name, ns):
+    return types.SimpleNamespace(device_type=lambda: device_type,
+                                 name=lambda: name, duration_ns=lambda: ns)
+
+
+def test_kernel_rows_sum_the_device_events_by_name():
+    """``kernel_rows`` keeps the raw events of the device, by name, and
+    drops the CPU's (operators and runtime calls)."""
+    events = [_raw(DeviceType.CPU, "aten::mul", 9_000_000),
+              _raw(DeviceType.CUDA, "k", 2_000_000),
+              _raw(DeviceType.CUDA, "k", 1_000_000),
+              _raw(DeviceType.CUDA, "Memcpy DtoH", 500_000)]
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    assert chip_smoke.kernel_rows(prof) == {"k": [2, 3.0],
+                                            "Memcpy DtoH": [1, 0.5]}
+
+
+@pytest.mark.cuda
+def test_kernel_rows_equal_key_averages_on_the_card():
+    """On the card, one profiled run read both ways: ``kernel_rows`` gives
+    the launches and device time of ``key_averages``' device rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the profiler traces the card)")
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1 << 20, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            x.mul_(1.0001)
+        x.cpu()
+        torch.cuda.synchronize()
+    rows = chip_smoke.kernel_rows(prof)
+    events = chip_smoke.device_events(prof)
+    assert sum(n for n, _ in rows.values()) == sum(e.count for e in events)
+    assert sum(n for n, _ in rows.values()) >= 201
+    assert sum(ms for _, ms in rows.values()) == pytest.approx(
+        sum(e.self_device_time_total for e in events) / 1e3, rel=1e-6)
+
+
 @pytest.mark.parametrize("verify, ops", [(False, 155_189_248),
                                          (True, 155_189_248 + 83_886_080)])
 def test_sealed_attention_bound_counts_the_valid_rows(verify, ops):
@@ -194,16 +234,32 @@ def _train_params(cfg) -> int:
             + 2 * V * D + 2 * D)
 
 
+def _meta_params(arch) -> int:
+    """Parameters of a published config, from its init on the meta
+    device."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    cfg = configs.get_config(arch)
+    params = registry.get_model(cfg).init(torch.Generator(), cfg, "meta")
+    return sum(x.numel() for x in torch.utils._pytree.tree_leaves(params))
+
+
 def test_train_families_phase_fits_moonshot_at_four_layers():
     """The train-families phase trains moonshot-v1-16b-a3b at full width
-    cut to 4 of its 48 layers and seamless-m4t-large-v2 at full size, one
-    4096-token sequence a step: 10 bytes of sealed state a parameter (bf16
-    weights, f32 mu and nu) are 30.2 GB and 20.3 GB; moonshot at 48 layers
-    would be 160 GB, twice the card."""
+    cut to 4 of its 48 layers, seamless-m4t-large-v2, rwkv6-3b and
+    zamba2-1.2b at full size, one 4096-token sequence a step: 10 bytes of
+    sealed state a parameter (bf16 weights, f32 mu and nu) are 30.2 GB,
+    20.3 GB, 31.0 GB and 11.8 GB; moonshot at 48 layers would be 160 GB,
+    twice the card."""
     from repro_torch import configs
 
-    assert chip_smoke.TRAIN_FAMILY_ARCHS == ("moonshot-v1-16b-a3b",
-                                             "seamless-m4t-large-v2")
+    assert chip_smoke.TRAIN_FAMILY_ARCHS == (
+        "moonshot-v1-16b-a3b", "seamless-m4t-large-v2", "rwkv6-3b",
+        "zamba2-1.2b")
+    assert set(chip_smoke.LONG_PREFILL_ARCHS) <= set(
+        chip_smoke.TRAIN_FAMILY_ARCHS)
+    n_rwkv, n_zamba = _meta_params("rwkv6-3b"), _meta_params("zamba2-1.2b")
+    assert 30.9e9 < 10 * n_rwkv < 31.1e9 and 11.7e9 < 10 * n_zamba < 11.9e9
     assert chip_smoke.TRAIN_FAMILY_CUTS == {
         "moonshot-v1-16b-a3b": {"n_layers": 4}}
     assert chip_smoke.CROSSPOD_ARCH in chip_smoke.TRAIN_FAMILY_ARCHS
@@ -221,7 +277,9 @@ def test_train_families_phase_fits_moonshot_at_four_layers():
     ("moonshot-v1-16b-a3b", {"n_layers": [48, 4], "global_batch": [256, 1],
                              "microbatch": [16, 1]}),
     ("seamless-m4t-large-v2", {"global_batch": [256, 1],
-                               "microbatch": [16, 1]})])
+                               "microbatch": [16, 1]}),
+    ("rwkv6-3b", {"global_batch": [256, 1], "microbatch": [16, 1]}),
+    ("zamba2-1.2b", {"global_batch": [256, 1], "microbatch": [16, 1]})])
 def test_train_family_reduced_lists_every_cut(arch, want):
     """The phase's ``reduced`` dict: [published, run] of the depth and of
     train_4k's global batch and microbatch (one sequence a step)."""
@@ -304,3 +362,102 @@ def test_parallel_phase_lines_parse(capsys):
         "parallel pipeline stage 0", "parallel pipeline stage 1"]
     assert "32 experts held" in lines[1] and "bit for bit True" in lines[3]
     assert "every block equal bit for bit True" in lines[6]
+
+
+@pytest.mark.parametrize("arch, want", [
+    ("rwkv6-3b", {"wkv6_forward": 64, "wkv6_backward": 32}),
+    ("zamba2-1.2b", {"ssd_forward": 74, "ssd_backward": 38}),
+    ("granite-3-2b", {})])
+def test_scan_launches_a_train_step(arch, want):
+    """A forward per layer call and one more per remat recompute (every
+    RWKV-6 block; 36 of zamba2's 38 layers, in full groups of 6), a
+    backward per layer; no scan for a family without a recurrence."""
+    from repro_torch.launch import steps
+    cfg = steps.make_cell(arch, "train_4k", device="cpu").cfg
+    assert chip_smoke.scan_launches_per_step(cfg) == want
+    assert chip_smoke.scan_launches_per_step(cfg.with_(remat="none")) == {
+        k: min(want.values()) for k in want}
+
+
+def test_scan_bounds_count_bytes_and_flops_once():
+    """One layer's scan over 4096 tokens: rwkv6-3b (40 heads of 64) and
+    zamba2-1.2b (64 heads of p 64, N 64).  The bound counts each call's
+    own inputs and outputs once and its FLOPs, and all four are bound by
+    the float32 FLOPs; training's checkpoints (512 a head) come apart, and
+    the bound that counts them is bound by bytes."""
+    shapes = chip_smoke.scan_shapes()
+    assert shapes == {"wkv6": (1, 4096, 40, 64), "ssd": (1, 4096, 64, 64,
+                                                         64)}
+    x, st, ck = 4096 * 40 * 64, 40 * 64 * 64, 512 * 40 * 64 * 64
+    f = chip_smoke.scan_bound("wkv6", False, shapes["wkv6"])
+    assert f["bytes"] == 4 * (5 * x + 40 * 64 + 2 * st)
+    assert f["flops"] == 7 * 4096 * 40 * 64 * 64
+    b = chip_smoke.scan_bound("wkv6", True, shapes["wkv6"])
+    assert b["bytes"] == 4 * (9 * x + 40 * 64 + 2 * st + 40 * 64)
+    assert b["flops"] == 2 * f["flops"]
+    assert f["checkpoint_bytes"] == b["checkpoint_bytes"] == 4 * ck
+    x, a, n = 4096 * 64 * 64, 4096 * 64, 4096 * 64
+    s = chip_smoke.scan_bound("ssd", True, shapes["ssd"])
+    assert s["bytes"] == 4 * (2 * a + 3 * x + 2 * 4096 * 64 + 2 * n * 64
+                              + 2 * 64 * 64 * 64)
+    assert s["flops"] == 14 * 4096 * 64 * 64 * 64
+    assert s["checkpoint_bytes"] == 4 * 512 * 64 * 64 * 64
+    for r in (f, b, s, chip_smoke.scan_bound("ssd", False, shapes["ssd"])):
+        assert r["bound_by"] == "operations"
+        assert r["bound_ms"] == pytest.approx(
+            r["flops"] / chip_smoke.F32_FLOPS_PER_S * 1e3)
+        assert r["bound_with_checkpoints_ms"] == pytest.approx(
+            (r["bytes"] + r["checkpoint_bytes"])
+            / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_long_prefill_cuts_only_the_batch(arch):
+    """prefill_32k's 32 prompts of 32768 tokens cut to one, at full
+    length; its logits checked against the plain loops at 2048."""
+    assert chip_smoke.long_prefill_reduced(arch) == {
+        "global_batch": [32, 1], "seq_len": [32768, 32768]}
+    assert chip_smoke.LONG_PREFILL_CHECK == 2048
+    assert arch in chip_smoke.LONG_PREFILL_ARCHS
+
+
+def test_plain_scans_swap_the_models_scans_back():
+    """Inside ``plain_scans`` the models' scans are the plain loops; after
+    it, the ops' own (which launch the kernels on the card)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.wkv6_scan import ops as wkv_ops
+    before = wkv_ops.wkv6_scan, ssd_ops.ssd_scan
+    with chip_smoke.plain_scans():
+        assert wkv_ops.wkv6_scan is not before[0]
+        r = torch.ones((1, 3, 1, 2))
+        y, s = wkv_ops.wkv6_scan(r, r, r, r, torch.ones((1, 2)),
+                                 torch.zeros((1, 1, 2, 2)))
+        assert tuple(y.shape) == (1, 3, 1, 2) and tuple(s.shape) == (1, 1,
+                                                                     2, 2)
+    assert (wkv_ops.wkv6_scan, ssd_ops.ssd_scan) == before
+
+
+def test_scan_and_long_prefill_lines_parse(capsys):
+    """``print_scan_checks`` and ``print_long_prefill``: every line names
+    the card."""
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    chip_smoke.print_scan_checks([
+        {"name": "wkv6_forward", "shape": (1, 4096, 40, 64),
+         "max_abs_err": 1e-6, "tolerance": {"rtol": 1e-5}, "ms": 0.9,
+         "ms_with_checkpoints": 1.0, "plain_ms": 100.0, "bound_ms": 0.07,
+         "bound_by": "operations", "bytes": 1, "flops": 2,
+         "checkpoint_bytes": 3, "bound_with_checkpoints_ms": 0.16}], card)
+    n, m = chip_smoke.LONG_PREFILL_LEN, chip_smoke.LONG_PREFILL_CHECK
+    run = {"wall_s": 2.0, "launches": {"wkv6_forward": 32},
+           "peak_bytes": 2**30}
+    logits = {dt: {"diff": 0.01, "limit": 0.5, "plain_wall_s": 3.0}
+              for dt in ("bfloat16", "float32")}
+    chip_smoke.print_long_prefill({"arch": "rwkv6-3b", "setup_s": 1.0,
+                                   "reduced": {}, n: run, m: run,
+                                   "logits": logits}, card)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3 and all(ln.endswith(card) for ln in lines)
+    assert "with checkpoints 1.0000 ms: + 3 checkpoint bytes" in lines[0]
+    assert "16384 tok/s" in lines[1]
+    assert "bfloat16 0.01 (limit 0.5; plain loops 3.000 s); float32 0.01" \
+        in lines[2]

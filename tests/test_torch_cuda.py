@@ -499,3 +499,107 @@ def test_byte_payloads_seal_on_the_card_as_on_the_cpu(gen, shape):
                                                   0x80000001))
     assert torch.equal(cipher.unseal_bits(ct, key, 0x80000001, torch.int8),
                        x)
+
+
+def wkv6_operands(gen, B, S, H, hd=64):
+    """RWKV-6 scan inputs at the model's scales: r, k, v ~ N(0, 1), decay
+    w = exp(-exp(N(0, 1) - 3)), u ~ 0.1 N(0, 1), a nonzero initial state,
+    and the gradients dy, ds of y and of the final state."""
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    w = torch.exp(-torch.exp(n(B, S, H, hd) - 3))
+    return (n(B, S, H, hd), n(B, S, H, hd), n(B, S, H, hd), w,
+            0.1 * n(H, hd), n(B, H, hd, hd)), (n(B, S, H, hd),
+                                               n(B, H, hd, hd))
+
+
+def ssd_operands(gen, B, S, H, P, N):
+    """Mamba-2 scan inputs: a = exp(-softplus(N(0, 1))), dtx, B, C ~
+    N(0, 1), a nonzero initial state, and the gradients dy, dh."""
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    a = torch.exp(-torch.nn.functional.softplus(n(B, S, H)))
+    return (a, n(B, S, H, P), n(B, S, N), n(B, S, N), n(B, H, P, N)), (
+        n(B, S, H, P), n(B, H, P, N))
+
+
+def within(got, want, rtol, atol=0.0):
+    return (got - want).abs().max().item() <= (
+        rtol * want.abs().max().item() + atol)
+
+
+# S 1, S off the checkpoint interval, several chunks, B 16 (rwkv6-3b's and
+# zamba2-1.2b's TRAIN_MICROBATCH), one rwkv6-3b sequence of 4096 tokens
+@pytest.mark.parametrize("B, S, H", [(1, 1, 2), (2, 13, 3), (1, 64, 40),
+                                     (16, 37, 4), (1, 4096, 40)])
+def test_wkv6_kernels_match_plain_version(gen, B, S, H):
+    from repro_torch.kernels.wkv6_scan import ops, ref
+    ins, (dy, ds) = wkv6_operands(gen, B, S, H)
+    f0, b0 = ops.wkv6_forward.launches, ops.wkv6_backward.launches
+    got = ops.wkv6_forward(*ins, save=True)
+    want = ref.wkv6_forward_ref(*ins, save=True)
+    for g, w in zip(got, want):
+        assert within(g, w, ref.FWD_RTOL, ref.FWD_ATOL)
+    grads = ops.wkv6_backward(*ins[:5], want[2], dy, ds)
+    torch.cuda.synchronize()
+    assert (ops.wkv6_forward.launches, ops.wkv6_backward.launches) == (
+        f0 + 1, b0 + 1)
+    for g, w in zip(grads, ref.wkv6_backward_ref(*ins[:5], want[2], dy, ds)):
+        assert within(g, w, ref.GRAD_RTOL)
+
+
+@pytest.mark.parametrize("B, S, H, P, N", [
+    (1, 1, 2, 64, 64), (2, 13, 3, 64, 64), (1, 64, 64, 64, 64),
+    (16, 37, 4, 64, 64), (2, 21, 4, 16, 8), (1, 9, 3, 5, 33),
+    (1, 4096, 64, 64, 64)])
+def test_ssd_kernels_match_plain_version(gen, B, S, H, P, N):
+    """zamba2-1.2b's head (p 64, N 64), its SMOKE head (p 16, N 8) and a
+    ragged one."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    ins, (dy, dh) = ssd_operands(gen, B, S, H, P, N)
+    f0, b0 = ops.ssd_forward.launches, ops.ssd_backward.launches
+    got = ops.ssd_forward(*ins, save=True)
+    want = ref.ssd_forward_ref(*ins, save=True)
+    for g, w in zip(got, want):
+        assert within(g, w, ref.FWD_RTOL, ref.FWD_ATOL)
+    grads = ops.ssd_backward(*ins[:4], want[2], dy, dh)
+    torch.cuda.synchronize()
+    assert (ops.ssd_forward.launches, ops.ssd_backward.launches) == (
+        f0 + 1, b0 + 1)
+    for g, w in zip(grads, ref.ssd_backward_ref(*ins[:4], want[2], dy, dh)):
+        assert within(g, w, ref.GRAD_RTOL)
+
+
+def test_scans_autograd_on_the_card_launches_one_kernel_each_way(gen):
+    """``wkv6_scan`` and ``ssd_scan`` under autograd: one forward and one
+    backward launch each, gradients equal to the plain versions' run
+    through the same custom ops on CPU copies."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.wkv6_scan import ops as wops
+    for scan, fwd, bwd, (ins, (dy, ds)) in (
+            (wops.wkv6_scan, wops.wkv6_forward, wops.wkv6_backward,
+             wkv6_operands(gen, 2, 19, 3)),
+            (sops.ssd_scan, sops.ssd_forward, sops.ssd_backward,
+             ssd_operands(gen, 2, 19, 3, 64, 64))):
+        cuda = [t.clone().requires_grad_() for t in ins]
+        cpu = [t.cpu().requires_grad_() for t in ins]
+        f0, b0 = fwd.launches, bwd.launches
+        y, s = scan(*cuda)
+        ((y * dy).sum() + (s * ds).sum()).backward()
+        torch.cuda.synchronize()
+        assert (fwd.launches, bwd.launches) == (f0 + 1, b0 + 1)
+        y, s = scan(*cpu)
+        ((y * dy.cpu()).sum() + (s * ds.cpu()).sum()).backward()
+        for g, w in zip(cuda, cpu):
+            assert within(g.grad.cpu(), w.grad, 1e-4)
+
+
+def test_scans_refuse_what_the_kernels_do_not_take(gen):
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.wkv6_scan import ops as wops
+    (r, k, v, w, u, s0), _ = wkv6_operands(gen, 1, 3, 2, hd=32)
+    with pytest.raises(ValueError, match="head dim 64"):
+        wops.wkv6_forward(r, k, v, w, u, s0)
+    (a, x, b, c, h0), _ = ssd_operands(gen, 1, 3, 2, 128, 16)
+    with pytest.raises(ValueError, match="up to 64"):
+        sops.ssd_forward(a, x, b, c, h0)

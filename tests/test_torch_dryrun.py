@@ -14,6 +14,8 @@ reference's (``repro.launch.dryrun``).
 * ``--resume`` skips the rows already in ``--out``;
 * ``Tally`` counts the FLOPs and the peak as torch's ``FlopCounterMode``
   and ``MemTracker`` do;
+* RWKV-6's and Zamba2's rows count their scans over every token: no row
+  is flagged a lower bound;
 * the CTR and MAC wrappers' meta path gives empty results of the right
   shapes and counts the launches the card would make in ``meta_launches``,
   never in ``launches``.
@@ -253,28 +255,57 @@ def test_tally_counts_as_torch_counters_do():
     assert meta <= tally["peak_bytes"]["meta"] <= meta + cpu
 
 
-@pytest.mark.parametrize("arch,shape,flagged", [
-    ("rwkv6-3b", "prefill_32k", True), ("zamba2-1.2b", "prefill_32k", True),
-    ("rwkv6-3b", "decode_32k", False), ("granite-3-2b", "prefill_32k",
-                                        False)])
-def test_rows_of_one_token_recurrences_are_lower_bounds(arch, shape,
-                                                         flagged):
-    """RWKV-6's and Zamba2's train and prefill rows say that their FLOPs
-    and peak leave out all but one token of the recurrence; a decode row
-    (one token) and a family without a per-token loop say nothing."""
+@pytest.mark.parametrize("arch,shape,scan", [
+    ("rwkv6-3b", "prefill_32k", "wkv6"), ("zamba2-1.2b", "prefill_32k", "ssd"),
+    ("rwkv6-3b", "decode_32k", "wkv6"), ("granite-3-2b", "prefill_32k",
+                                         None)])
+def test_rows_of_one_token_recurrences_are_lower_bounds(monkeypatch, arch,
+                                                         shape, scan):
+    """No row is a lower bound any more: RWKV-6's and Zamba2's recurrences
+    run on meta as one scan op over every token, so no row carries
+    ``recurrence_tokens_run``, ``flops_is_lower_bound`` or
+    ``peak_is_lower_bound``, and a row's FLOPs hold the scan's formula: one
+    forward a layer at the cell's batch and length (a decode step's one
+    token), counted as one meta launch a layer; a family without a scan
+    gains nothing."""
+    from torch.utils.flop_counter import flop_registry
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.wkv6_scan import ops as wkv_ops
     from repro_torch.launch.mesh import make_smoke_mesh
-    with dryrun.fake_world(2):
-        row = dryrun.run_cell(arch, shape, make_smoke_mesh(2,
-                                                           device_type="cpu"),
-                              "smoke_1x2", "trusted", microbatch=1,
-                              cuts={"seq_len": 64, "global_batch": 2})
+    from repro_torch.models import ssm
+
+    def row_of():
+        with dryrun.fake_world(2):
+            return dryrun.run_cell(arch, shape, make_smoke_mesh(
+                2, device_type="cpu"), "smoke_1x2", "trusted", microbatch=1,
+                cuts={"seq_len": 64, "global_batch": 2})
+
+    fwd = {"wkv6": wkv_ops.wkv6_forward, "ssd": ssd_ops.ssd_forward}
+    n0 = {k: f.meta_launches for k, f in fwd.items()}
+    row = row_of()
     assert row["status"] == "ok"
-    keys = ("recurrence_tokens_run", "flops_is_lower_bound",
-            "peak_is_lower_bound")
-    if flagged:
-        assert [row[k] for k in keys] == [1, True, True]
+    assert not {"recurrence_tokens_run", "flops_is_lower_bound",
+                "peak_is_lower_bound"} & set(row)
+    assert row["flops_counted"] == dryrun.FLOPS_COUNTED
+    cfg = configs.get_config(arch)
+    B, S = 2, (64 if shape == "prefill_32k" else 1)
+    if scan == "wkv6":
+        hd = cfg.rwkv.head_dim
+        want = wkv_ops.forward_flops(B, S, cfg.d_model // hd, hd)
+    elif scan == "ssd":
+        _, H, P, N = ssm._m2_dims(cfg)
+        want = ssd_ops.forward_flops(B, S, H, P, N)
     else:
-        assert not set(keys) & set(row)
+        want = 0
+    for k, f in fwd.items():
+        assert f.meta_launches - n0[k] == (cfg.n_layers if k == scan else 0)
+    for op in (torch.ops.repro_torch.wkv6_forward,
+               torch.ops.repro_torch.wkv6_backward,
+               torch.ops.repro_torch.ssd_forward,
+               torch.ops.repro_torch.ssd_backward):
+        monkeypatch.delitem(flop_registry, op)
+    assert row["flops"] - row_of()["flops"] == cfg.n_layers * want
 
 
 @pytest.mark.parametrize("dtype", [torch.int16, torch.int32])

@@ -31,7 +31,10 @@ SLICE_MODULES = (
     "repro_torch.launch.mesh", "repro_torch.parallel.sharding",
     "repro_torch.parallel.pipeline", "repro_torch.models.moe_ep",
     "repro_torch.core.overhead", "repro_torch.accel.vta_sim",
-    "repro_torch.accel.workloads", "repro_torch.launch.dryrun")
+    "repro_torch.accel.workloads", "repro_torch.launch.dryrun",
+    "repro_torch.kernels.scan",
+    "repro_torch.kernels.wkv6_scan.ops", "repro_torch.kernels.wkv6_scan.ref",
+    "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref")
 
 PROBE = """
 import pkgutil, sys
