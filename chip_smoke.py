@@ -26,6 +26,8 @@ From the root of a checkout:  python3 chip_smoke.py
    layer of rwkv6-3b (B 1, S 4096, H 40, hd 64) and of zamba2-1.2b (H 64,
    p 64, N 64) against the plain per-token loops within the limits of
    ``kernels/*_scan/ref.py``, timed in CUDA graphs beside their bounds;
+   the SSD's kernels also twice on the same inputs (bit for bit) and on
+   runs of decays of exactly 0 and 1, with each call's kernels and grids;
 3. serves granite-3-2b at its full published width and depth (40 layers,
    bf16, random weights from a seeded torch.Generator) through the sealed
    paged engine: two tenant channels, weights sealed under the provider
@@ -154,6 +156,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -314,7 +317,6 @@ def check(cond: bool, what: str) -> None:
 
 def kernel_name(mangled: str) -> str:
     """"sealed_matmul_kernel<4,2>" from the mangled name of a kernel."""
-    import re
     base = re.search(r"\d+([a-z_]+(?:kernel|split|combine))", mangled)
     args = re.findall(r"Li(\d+)E", mangled)
     return (base.group(1) if base else mangled) + (
@@ -684,10 +686,13 @@ def kernel_rows(prof) -> dict:
     return rows
 
 
+SCAN_KERNELS = ("wkv6_", "ssd_")   # the recurrence scans' kernel names
+
+
 def profile_step(step):
     """One step under torch.profiler: wall ms, device-busy ms (sum of the
-    kernels' device times), launches and the top kernels by device
-    time."""
+    kernels' device times), launches, the top kernels by device time and
+    the recurrence scans' kernels' device ms summed (``scans_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -700,8 +705,11 @@ def profile_step(step):
     rows = kernel_rows(prof)
     busy_ms = sum(ms for _, ms in rows.values())
     top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:10]
+    scans_ms = sum(ms for name, (_, ms) in rows.items()
+                   if any(k in name for k in SCAN_KERNELS))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
+            "scans_ms": scans_ms,
             "kernel_launches": sum(n for n, _ in rows.values()),
             "top": [{"op": name[:60], "device_ms": ms, "count": n}
                     for name, (n, ms) in top]}
@@ -1570,7 +1578,7 @@ def scan_checks() -> list:
             n(B, H, hd, hd))
     wgrad = (n(B, S, H, hd), n(B, H, hd, hd))
     B, S, H, P, N = shapes["ssd"]
-    sins = (torch.exp(-torch.nn.functional.softplus(n(B, S, H))),
+    sins = (-torch.nn.functional.softplus(n(B, S, H)),
             n(B, S, H, P), n(B, S, N), n(B, S, N), n(B, H, P, N))
     sgrad = (n(B, S, H, P), n(B, H, P, N))
     cases = (("wkv6", wins, wgrad, wkv_ops.wkv6_forward,
@@ -1579,7 +1587,7 @@ def scan_checks() -> list:
               "src/repro/models/rwkv.py:141-152"),
              ("ssd", sins, sgrad, ssd_ops.ssd_forward, ssd_ops.ssd_backward,
               ssd_ref.ssd_forward_ref, ssd_ref.ssd_backward_ref, ssd_ref, 4,
-              "src/repro/models/ssm.py:95-104"))
+              "src/repro/models/ssm.py:88-104"))
     out = []
     for kind, ins, grads, fwd, bwd, fwd_ref, bwd_ref, ref, n_in, at in cases:
         got = fwd(*ins, save=True)
@@ -1596,13 +1604,14 @@ def scan_checks() -> list:
         shape = shapes[kind]
         fb, bb = scan_bound(kind, False, shape), scan_bound(kind, True, shape)
         ck = want[2]
+        extra = ssd_card_checks(ins, grads, ck) if kind == "ssd" else {}
         out.append(dict(
             name=f"{kind}_forward", shape=shape, max_abs_err=f_err,
             tolerance={"rtol": ref.FWD_RTOL, "atol": ref.FWD_ATOL},
             ms=graph_ms(lambda: fwd(*ins)),
             ms_with_checkpoints=graph_ms(lambda: fwd(*ins, save=True)),
             plain_ms=device_ms(lambda: fwd_ref(*ins), reps=1),
-            replaces=at, **fb))
+            replaces=at, **extra.get("forward", {}), **fb))
         out.append(dict(
             name=f"{kind}_backward", shape=shape, max_abs_err=b_err,
             tolerance={"rtol": ref.GRAD_RTOL, "of": "each output's largest "
@@ -1610,9 +1619,83 @@ def scan_checks() -> list:
             ms=graph_ms(lambda: bwd(*ins[:n_in], ck, *grads)),
             plain_ms=device_ms(lambda: bwd_ref(*ins[:n_in], ck, *grads),
                                reps=1),
-            replaces=at, **bb))
+            replaces=at, **extra.get("backward", {}), **bb))
         del ins, grads, want, ck
         torch.cuda.empty_cache()
+    return out
+
+
+def ssd_card_checks(ins, grads, ck) -> dict:
+    """The SSD kernels at zamba2-1.2b's layer shape, beyond the check
+    against the plain versions: a second run on the same inputs equal bit
+    for bit (no atomics); a run of 40 tokens whose decay is exactly 0 (la
+    -200: exp underflows) and one of 40 whose decay is 1 (la 0), finite
+    and within the limits of the plain versions; and each call's kernels,
+    grids and threads as the launcher reports them (``last_plan`` of the
+    timed calls; the profiler must see those kernels and no other).
+    {"forward": {...}, "backward": {...}}, each with ``repeat_bitwise``,
+    ``zero_decay_err``, ``plan`` and ``kernel_ms``."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    la, rest = ins[0], ins[1:]
+    dy, dh = grads
+    f1, f2 = ops.ssd_forward(*ins, save=True), ops.ssd_forward(*ins,
+                                                               save=True)
+    b1 = ops.ssd_backward(*ins[:4], ck, dy, dh)
+    b2 = ops.ssd_backward(*ins[:4], ck, dy, dh)
+    same_f = all(torch.equal(x, y) for x, y in zip(f1, f2))
+    same_b = all(torch.equal(x, y) for x, y in zip(b1, b2))
+    check(same_f and same_b, f"ssd kernels differ between two runs: "
+                             f"forward {same_f}, backward {same_b}")
+    del f1, f2, b1, b2
+    lz = la.clone()
+    lz[:, 1000:1040] = -200.0
+    lz[:, 2000:2040] = 0.0
+    zins = (lz, *rest)
+    got = ops.ssd_forward(*zins, save=True)
+    want = ref.ssd_forward_ref(*zins, save=True)
+    f_err, f_ok = _errs(got, want, ref.FWD_RTOL, ref.FWD_ATOL)
+    gk = ops.ssd_backward(*zins[:4], want[2], dy, dh)
+    gp = ref.ssd_backward_ref(*zins[:4], want[2], dy, dh)
+    b_err, b_ok = _errs(gk, gp, ref.GRAD_RTOL)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*got, *gk))
+    check(finite and f_ok and b_ok,
+          f"ssd kernels on decays of 0 and 1: finite {finite}, forward err "
+          f"{f_err}, backward err {b_err}")
+    del got, want, gk, gp
+    out = {}
+    for way, wrapper, call in (
+            ("forward", ops.ssd_forward, lambda: ops.ssd_forward(*ins)),
+            ("backward", ops.ssd_backward,
+             lambda: ops.ssd_backward(*ins[:4], ck, dy, dh))):
+        wrapper.last_plan = None
+        kernel_ms = ssd_kernel_ms(call)
+        plan = wrapper.last_plan
+        check(plan is not None and set(plan["grids"]) == set(kernel_ms),
+              f"ssd_{way}: the launcher's plan {plan} does not name the "
+              f"kernels the profiler saw, {sorted(kernel_ms)}")
+        out[way] = {"repeat_bitwise": same_f if way == "forward" else same_b,
+                    "zero_decay_err": f_err if way == "forward" else b_err,
+                    "plan": plan, "kernel_ms": kernel_ms}
+    return out
+
+
+def ssd_kernel_ms(call, reps: int = 10) -> dict:
+    """Device ms of each kernel one call of an SSD wrapper runs, from
+    torch.profiler's raw events over ``reps`` calls after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for name, (_, ms) in kernel_rows(prof).items():
+        short = re.search(r"(ssd_\w+(?:<\w+>)?)\(", name)
+        if short:
+            out[short.group(1)] = out.get(short.group(1), 0.0) + ms / reps
     return out
 
 
@@ -1773,6 +1856,13 @@ def print_scan_checks(cases: list, card: str) -> None:
               f"{ck}: + {c['checkpoint_bytes']} checkpoint bytes, bound "
               f"{c['bound_with_checkpoints_ms']:.4f} ms; {card}",
               flush=True)
+        if "plan" in c:
+            print(f"ssd plan {c['name']}: {json.dumps(c['plan'])}; device "
+                  f"ms a call by kernel {json.dumps(c['kernel_ms'])}; kernel "
+                  f"{c['ms']:.4f} ms against bound {c['bound_ms']:.4f} ms "
+                  f"({c['bound_ms'] / c['ms']:.1%}); two runs bit for bit "
+                  f"{c['repeat_bitwise']}; 40 decays of 0 and 40 of 1: max "
+                  f"abs err {c['zero_decay_err']:.3g}; {card}", flush=True)
 
 
 def ctr_payload_bound(shape, dtype) -> dict:
@@ -2326,7 +2416,8 @@ def print_train_family(f: dict, card: str) -> None:
           f" {card}", flush=True)
     print(f"profile: one {arch} train step {p['wall_ms']:.1f} ms wall = "
           f"{n / p['wall_ms'] * 1e3:.0f} tok/s, {p['device_busy_ms']:.1f} ms "
-          f"busy, idle {p['device_idle_share']:.3f}, "
+          f"busy ({p['scans_ms']:.1f} ms of it the scans' kernels), idle "
+          f"{p['device_idle_share']:.3f}, "
           f"{p['kernel_launches']} kernel rows (the profiler's own "
           f"processing {p.get('overhead_s', 0):.1f} s); top three "
           f"{json.dumps(p['top'])}", flush=True)
@@ -2881,7 +2972,11 @@ def _pp_rank(mesh) -> dict:
     peak = torch.cuda.max_memory_allocated()
     loss = loss.item()
     errs = _rel_errs(_tree_paths(grads), ref)
+    # both ranks share the card: give back this step's cached blocks before
+    # the control's step, or the two stages' peaks can meet at 80 GB
     del grads
+    gc.collect()
+    torch.cuda.empty_cache()
     unseal = pipeline._unseal_hop
     pipeline._unseal_hop = (lambda ct, k, tick, sender, domain, dt: unseal(
         ct, k, tick, sender, pipeline.FWD_DOMAIN, dt))
@@ -4120,6 +4215,8 @@ def main() -> int:
             "checkpoints": {
                 k: c[k] for k in ("ms_with_checkpoints", "checkpoint_bytes",
                                   "bound_with_checkpoints_ms") if k in c},
+            **{k: c[k] for k in ("plan", "kernel_ms", "repeat_bitwise",
+                                 "zero_decay_err") if k in c},
             "workload": f"one layer's call at {list(c['shape'])}; ms in a "
                         "CUDA graph; the bound counts the function's own "
                         "operands, the checkpoints' bytes apart"})

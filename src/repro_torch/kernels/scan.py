@@ -4,10 +4,11 @@ launch counts, the autograd rule, the FLOP formulas, and when the forward
 keeps checkpoints.
 
 Each scan is a pair of ``torch.library`` custom ops.  The forward op takes
-the tensors its backward reads, then the initial state and ``save``, and
-returns (y, final state, checkpoints); the backward op takes those
-tensors, the checkpoints, dy and the final state's gradient.  Nothing here
-runs at import but the registrations.
+the tensors its backward reads, then the initial state (and, where it
+keeps checkpoints only on request, ``save``), and returns (y, final
+state, checkpoints, and any scratch it makes); the backward op takes
+those tensors, the checkpoints, dy and the final state's gradient.
+Nothing here runs at import but the registrations.
 """
 from __future__ import annotations
 
@@ -74,18 +75,19 @@ def launch(wrapper, lib: str, entry: str, ptrs, ints,
 def register_autograd(forward_op, name: str, n_saved: int, grads) -> None:
     """The backward of ``forward_op`` (the wrapper ``name``): ``grads(
     *saved, checkpoints, dy, d_final_state)`` gives one gradient a tensor
-    input, where ``saved`` are the op's first ``n_saved`` inputs.  A
-    forward that ran with save=False kept no checkpoints, and its backward
-    raises."""
+    input, where ``saved`` are the op's first ``n_saved`` inputs; the
+    inputs that are not tensors get None.  A forward that ran with
+    save=False kept no checkpoints, and its backward raises."""
     def setup(ctx, inputs, output):
         ctx.save_for_backward(*inputs[:n_saved], output[2])
+        ctx.n_flags = sum(not isinstance(x, torch.Tensor) for x in inputs)
 
-    def backward(ctx, dy, ds, _dck):
+    def backward(ctx, dy, ds, *_):
         *saved, ck = ctx.saved_tensors
         if ck.numel() == 0:
             raise RuntimeError(f"{name} ran with save=False: no "
                                f"checkpoints for the backward")
-        return (*grads(*saved, ck, dy, ds), None)
+        return (*grads(*saved, ck, dy, ds), *(None,) * ctx.n_flags)
 
     forward_op.register_autograd(backward, setup_context=setup)
 

@@ -6,8 +6,9 @@ Mamba-2 head recurrence (scalar decay per head, state N):
     y_t = h_t . C_t + D * x_t
 with a_t = exp(-softplus(dt_t) * exp(A_log)), a causal depthwise conv over
 the (x, B, C) stream, and a silu(z) output gate.  The recurrence runs in
-float32 through ``kernels.ssd_scan`` (a CUDA scan kernel with its backward
-on the card, the plain per-token loop on the CPU).
+float32 through ``kernels.ssd_scan`` (a chunked CUDA scan with its backward
+on the card, the same algorithm in plain torch on the CPU), which takes
+the log decay.
 
 Zamba2 hybrid: a stack of Mamba-2 blocks with ONE shared full-attention
 transformer block (its own weights, reused) invoked before every group of
@@ -90,15 +91,16 @@ def m2_forward(p, cfg, x, ssm_state=None, conv_state=None):
     xh = xr.reshape(B, S, H, hp).float()
     dt = dt.float() + p["dt_bias"]
     dt = torch.logaddexp(dt, torch.zeros((), device=dt.device))  # softplus
-    a = torch.exp(-dt * torch.exp(p["A_log"])[None, None, :])       # [B,S,H]
+    la = -dt * torch.exp(p["A_log"])[None, None, :]   # log decay [B,S,H]
     Bf, Cf = Bc.float(), Cc.float()
     if ssm_state is None:
         ssm_state = torch.zeros((B, H, hp, N), dtype=torch.float32,
                                 device=x.device)
     dtx = dt[..., None] * xh                                        # [B,S,H,p]
-    # the SSD recurrence: one scan op (the card's kernel, the plain loop on
-    # the CPU, shapes only on the meta device)
-    y, h = ssd_ops.ssd_scan(a, dtx, Bf, Cf, ssm_state)
+    # the SSD recurrence of the decay exp(la): one scan op (the card's
+    # chunked kernels, their algorithm in plain torch on the CPU, shapes
+    # only on the meta device)
+    y, h = ssd_ops.ssd_scan(la, dtx, Bf, Cf, ssm_state)
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(B, S, d_inner).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)

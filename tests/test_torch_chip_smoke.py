@@ -383,8 +383,9 @@ def test_scan_bounds_count_bytes_and_flops_once():
     """One layer's scan over 4096 tokens: rwkv6-3b (40 heads of 64) and
     zamba2-1.2b (64 heads of p 64, N 64).  The bound counts each call's
     own inputs and outputs once and its FLOPs, and all four are bound by
-    the float32 FLOPs; training's checkpoints (512 a head) come apart, and
-    the bound that counts them is bound by bytes."""
+    the float32 FLOPs; training's checkpoints (512 a head for the WKV, 64
+    for the SSD) come apart; the bound that counts them is the WKV's bytes,
+    and the slower of the SSD's bytes and FLOPs."""
     shapes = chip_smoke.scan_shapes()
     assert shapes == {"wkv6": (1, 4096, 40, 64), "ssd": (1, 4096, 64, 64,
                                                          64)}
@@ -401,14 +402,16 @@ def test_scan_bounds_count_bytes_and_flops_once():
     assert s["bytes"] == 4 * (2 * a + 3 * x + 2 * 4096 * 64 + 2 * n * 64
                               + 2 * 64 * 64 * 64)
     assert s["flops"] == 14 * 4096 * 64 * 64 * 64
-    assert s["checkpoint_bytes"] == 4 * 512 * 64 * 64 * 64
-    for r in (f, b, s, chip_smoke.scan_bound("ssd", False, shapes["ssd"])):
+    assert s["checkpoint_bytes"] == 4 * 64 * 64 * 64 * 64
+    ssd = (s, chip_smoke.scan_bound("ssd", False, shapes["ssd"]))
+    for r in (f, b, *ssd):
+        ops_ms = r["flops"] / chip_smoke.F32_FLOPS_PER_S * 1e3
+        bytes_ms = ((r["bytes"] + r["checkpoint_bytes"])
+                    / chip_smoke.HBM_BYTES_PER_S * 1e3)
         assert r["bound_by"] == "operations"
-        assert r["bound_ms"] == pytest.approx(
-            r["flops"] / chip_smoke.F32_FLOPS_PER_S * 1e3)
+        assert r["bound_ms"] == pytest.approx(ops_ms)
         assert r["bound_with_checkpoints_ms"] == pytest.approx(
-            (r["bytes"] + r["checkpoint_bytes"])
-            / chip_smoke.HBM_BYTES_PER_S * 1e3)
+            max(bytes_ms, ops_ms) if r in ssd else bytes_ms)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
@@ -461,3 +464,29 @@ def test_scan_and_long_prefill_lines_parse(capsys):
     assert "16384 tok/s" in lines[1]
     assert "bfloat16 0.01 (limit 0.5; plain loops 3.000 s); float32 0.01" \
         in lines[2]
+
+
+def test_ssd_plan_line_names_kernels_grids_and_the_card(capsys):
+    """An SSD check prints a second line: the kernels of a call and their
+    grids (the launcher's report, ``last_plan``), the time against the
+    bound, the repeat and the decays of 0 and 1."""
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    plan = {"kernels_per_call": 3, "heads_per_block": 8, "threads": 256,
+            "grids": {"ssd_local_kernel<true>": [64, 8, 1],
+                      "ssd_carry_kernel<true>": [1024, 1, 1],
+                      "ssd_grad_kernel": [64, 8, 1]}}
+    chip_smoke.print_scan_checks([
+        {"name": "ssd_backward", "shape": (1, 4096, 64, 64, 64),
+         "max_abs_err": 1e-4, "tolerance": {"rtol": 1e-4}, "ms": 0.8,
+         "plain_ms": 1000.0, "bound_ms": 0.2, "bound_by": "operations",
+         "bytes": 1, "flops": 2, "checkpoint_bytes": 3,
+         "bound_with_checkpoints_ms": 0.2, "repeat_bitwise": True,
+         "zero_decay_err": 1e-3,
+         "kernel_ms": {"ssd_grad_kernel": 0.6, "ssd_local_kernel<true>": 0.1,
+                       "ssd_carry_kernel<true>": 0.05}, "plan": plan}],
+        card)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2 and all(ln.endswith(card) for ln in lines)
+    assert lines[1].startswith("ssd plan ssd_backward: ")
+    assert '"ssd_grad_kernel": [64, 8, 1]' in lines[1]
+    assert "(25.0%); two runs bit for bit True" in lines[1]

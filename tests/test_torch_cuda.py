@@ -514,12 +514,12 @@ def wkv6_operands(gen, B, S, H, hd=64):
 
 
 def ssd_operands(gen, B, S, H, P, N):
-    """Mamba-2 scan inputs: a = exp(-softplus(N(0, 1))), dtx, B, C ~
-    N(0, 1), a nonzero initial state, and the gradients dy, dh."""
+    """Mamba-2 scan inputs: the log decay la = -softplus(N(0, 1)), dtx, B,
+    C ~ N(0, 1), a nonzero initial state, and the gradients dy, dh."""
     def n(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    a = torch.exp(-torch.nn.functional.softplus(n(B, S, H)))
-    return (a, n(B, S, H, P), n(B, S, N), n(B, S, N), n(B, H, P, N)), (
+    la = -torch.nn.functional.softplus(n(B, S, H))
+    return (la, n(B, S, H, P), n(B, S, N), n(B, S, N), n(B, H, P, N)), (
         n(B, S, H, P), n(B, H, P, N))
 
 
@@ -568,6 +568,58 @@ def test_ssd_kernels_match_plain_version(gen, B, S, H, P, N):
         f0 + 1, b0 + 1)
     for g, w in zip(grads, ref.ssd_backward_ref(*ins[:4], want[2], dy, dh)):
         assert within(g, w, ref.GRAD_RTOL)
+
+
+def check_ssd_kernels(ins, dy, dh):
+    """The SSD wrappers once each way (one launch each) against the plain
+    per-token versions, within the stated limits, outputs finite."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    f0, b0 = ops.ssd_forward.launches, ops.ssd_backward.launches
+    got = ops.ssd_forward(*ins, save=True)
+    want = ref.ssd_forward_ref(*ins, save=True)
+    grads = ops.ssd_backward(*ins[:4], want[2], dy, dh)
+    torch.cuda.synchronize()
+    assert (ops.ssd_forward.launches, ops.ssd_backward.launches) == (
+        f0 + 1, b0 + 1)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert within(g, w, ref.FWD_RTOL, ref.FWD_ATOL)
+    for g, w in zip(grads, ref.ssd_backward_ref(*ins[:4], want[2], dy, dh)):
+        assert torch.isfinite(g).all()
+        assert within(g, w, ref.GRAD_RTOL)
+
+
+# zamba2-1.2b's SMOKE head (16 heads of p 16, N 8) at one token, one past
+# a chunk of 64 and one past 64 chunks
+@pytest.mark.parametrize("S", [1, 65, 4097])
+def test_ssd_kernels_at_ragged_lengths(gen, S):
+    ins, (dy, dh) = ssd_operands(gen, 2, S, 16, 16, 8)
+    check_ssd_kernels(ins, dy, dh)
+
+
+def test_ssd_kernels_on_decays_of_zero_and_one(gen):
+    """zamba2-1.2b's layer shape with a run of 40 tokens whose decay is
+    exactly 0 (la -200: exp underflows), one of 70 across a chunk boundary
+    and one of 40 whose decay is 1 (la 0)."""
+    ins, (dy, dh) = ssd_operands(gen, 1, 4096, 64, 64, 64)
+    la = ins[0]
+    la[:, 1000:1040] = -200.0
+    la[:, 3000:3070] = -200.0
+    la[:, 2000:2040] = 0.0
+    check_ssd_kernels(ins, dy, dh)
+
+
+def test_ssd_kernels_repeat_bit_for_bit(gen):
+    """Two runs on the same inputs at zamba2-1.2b's layer shape give equal
+    outputs and gradients (no atomics: every sum in a fixed order)."""
+    from repro_torch.kernels.ssd_scan import ops
+    ins, (dy, dh) = ssd_operands(gen, 1, 4096, 64, 64, 64)
+    runs = []
+    for _ in range(2):
+        y, h, ck = ops.ssd_forward(*ins, save=True)
+        runs.append((y, h, ck, *ops.ssd_backward(*ins[:4], ck, dy, dh)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_scans_autograd_on_the_card_launches_one_kernel_each_way(gen):

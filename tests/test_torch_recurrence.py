@@ -1,11 +1,12 @@
 """RWKV-6's and Mamba-2's recurrences as scan ops (``kernels/wkv6_scan``,
 ``kernels/ssd_scan``), on the CPU.
 
-* The plain forward and its explicit backward (from state checkpoints, the
-  kernels' algorithm) against torch autograd through the per-token loop,
-  in float64: one token, lengths off the checkpoint interval, several
-  chunks, a nonzero initial state, a gradient into the final state, B > 1;
-  and the custom op (float32) within the stated limits of the same.
+* The plain forward and its explicit backward (from state checkpoints)
+  against torch autograd through the per-token loop, in float64: one
+  token, lengths off the checkpoint interval, several chunks, a nonzero
+  initial state, a gradient into the final state, B > 1; and the custom op
+  (float32; for the SSD the kernels' chunked algorithm) within the stated
+  limits of the same.  The SSD takes the log decay.
 * ``rwkv.time_mix`` and ``ssm.m2_forward`` at SMOKE size with layer 0 of
   the reference's ``init`` carried across as numpy: the forward within
   1e-5 max|ref| + 1e-6 of the JAX package's, and the VJP by ``jax.vjp``
@@ -39,9 +40,13 @@ from repro_torch.models import ssm as tssm  # noqa: E402
 torch.set_num_threads(1)
 
 EXACT = 1e-10        # float64: the explicit backward against autograd
-# one token; lengths off the checkpoint interval (8) with a nonzero initial
-# state and a gradient into the final state; several chunks at B > 1
+# one token; lengths off the checkpoint interval (the WKV's 8) with a
+# nonzero initial state and a gradient into the final state; several chunks
+# at B > 1
 LENGTHS = [(1, 1), (1, 13), (2, 21), (3, 16)]
+# the same, and past the SSD's interval of 64: one token into a second
+# chunk, several chunks at B > 1
+SSD_LENGTHS = LENGTHS + [(1, 65), (2, 130)]
 
 
 def within(got, want, rtol, atol=0.0):
@@ -59,8 +64,9 @@ def wkv_loop(r, k, v, w, u, s):
     return torch.stack(ys, 1), s
 
 
-def ssd_loop(a, x, b, c, h):
+def ssd_loop(la, x, b, c, h):
     ys = []
+    a = torch.exp(la)
     for t in range(x.shape[1]):
         h = (a[:, t, :, None, None] * h
              + torch.einsum("bhp,bn->bhpn", x[:, t], b[:, t]))
@@ -77,9 +83,9 @@ def wkv_inputs(rng, B, S, H=3, hd=5):
 
 
 def ssd_inputs(rng, B, S, H=3, P=4, N=6):
-    a = np.exp(-np.log1p(np.exp(rng.standard_normal((B, S, H)))))
+    la = -np.log1p(np.exp(rng.standard_normal((B, S, H))))
     return [torch.from_numpy(x) for x in (
-        a, rng.standard_normal((B, S, H, P)), rng.standard_normal((B, S, N)),
+        la, rng.standard_normal((B, S, H, P)), rng.standard_normal((B, S, N)),
         rng.standard_normal((B, S, N)), rng.standard_normal((B, H, P, N)))]
 
 
@@ -113,7 +119,7 @@ def test_wkv6_plain_scan_and_backward_match_autograd_of_the_loop(B, S):
         assert within(leaf.grad, want, wkv_ref.GRAD_RTOL)
 
 
-@pytest.mark.parametrize("B, S", LENGTHS)
+@pytest.mark.parametrize("B, S", SSD_LENGTHS)
 def test_ssd_plain_scan_and_backward_match_autograd_of_the_loop(B, S):
     rng = np.random.RandomState(S + 100)
     ins = ssd_inputs(rng, B, S)
@@ -203,8 +209,9 @@ def test_m2_forward_and_vjp_match_the_reference():
 @pytest.mark.parametrize("save", [False, True])
 def test_scans_on_meta_give_shapes_and_count_launches(save):
     """One forward each, and with checkpoints one backward: outputs of the
-    right shapes (checkpoints [B, ceil(S/8), H, ., .], dB and dC per head),
-    one meta launch each, no real launch."""
+    right shapes (checkpoints [B, ceil(S/8), H, hd, hd] for the WKV,
+    [B, ceil(S/64), H, p, N] for the SSD, dB and dC per head), one meta
+    launch each, no real launch."""
     B, S, H, hd, P, N = 2, 20, 3, 64, 16, 8
 
     def m(*shape):
@@ -222,7 +229,7 @@ def test_scans_on_meta_give_shapes_and_count_launches(save):
     y2, h, ck2 = ssd_ops.ssd_forward(m(B, S, H), m(B, S, H, P), m(B, S, N),
                                      m(B, S, N), m(B, H, P, N), save)
     assert (tuple(y2.shape), tuple(h.shape)) == ((B, S, H, P), (B, H, P, N))
-    assert tuple(ck2.shape) == ((B, 3, H, P, N) if save else (0,))
+    assert tuple(ck2.shape) == ((B, 1, H, P, N) if save else (0,))
     if save:
         grads = wkv_ops.wkv6_backward(x, x, x, x, m(H, hd), ck, x,
                                       m(B, H, hd, hd))

@@ -64,12 +64,12 @@ def wrong_scans(kind: str):
     def late_w(r, k, v, w, u, s):
         return kernel_wkv(r, k, v, _late(w), u, s)
 
-    def no_input(a, dtx, b, c, h):
-        y, h_out = kernel_ssd(a, dtx, b, c, h)
+    def no_input(la, dtx, b, c, h):
+        y, h_out = kernel_ssd(la, dtx, b, c, h)
         return y - dtx * (b * c).sum(-1)[:, :, None, None], h_out
 
-    def late_a(a, dtx, b, c, h):
-        return kernel_ssd(_late(a), dtx, b, c, h)
+    def late_a(la, dtx, b, c, h):
+        return kernel_ssd(_late(la), dtx, b, c, h)
 
     wkv_ops.wkv6_scan = {"no u bonus": no_u,
                          "stale decay": late_w}.get(kind, kernel_wkv)
