@@ -26,8 +26,9 @@ From the root of a checkout:  python3 chip_smoke.py
    layer of rwkv6-3b (B 1, S 4096, H 40, hd 64) and of zamba2-1.2b (H 64,
    p 64, N 64) against the plain per-token loops within the limits of
    ``kernels/*_scan/ref.py``, timed in CUDA graphs beside their bounds;
-   the SSD's kernels also twice on the same inputs (bit for bit) and on
-   runs of decays of exactly 0 and 1, with each call's kernels and grids;
+   each scan's kernels also twice on the same inputs (bit for bit) and on
+   runs of decays of exactly 0 and 1 (RWKV-6's also on strong decays),
+   with each call's kernels and grids;
 3. serves granite-3-2b at its full published width and depth (40 layers,
    bf16, random weights from a seeded torch.Generator) through the sealed
    paged engine: two tenant channels, weights sealed under the provider
@@ -1574,7 +1575,7 @@ def scan_checks() -> list:
     shapes = scan_shapes()
     B, S, H, hd = shapes["wkv6"]
     wins = (n(B, S, H, hd), n(B, S, H, hd), n(B, S, H, hd),
-            torch.exp(-torch.exp(n(B, S, H, hd) - 3)), 0.1 * n(H, hd),
+            -torch.exp(n(B, S, H, hd) - 3), 0.1 * n(H, hd),
             n(B, H, hd, hd))
     wgrad = (n(B, S, H, hd), n(B, H, hd, hd))
     B, S, H, P, N = shapes["ssd"]
@@ -1604,7 +1605,7 @@ def scan_checks() -> list:
         shape = shapes[kind]
         fb, bb = scan_bound(kind, False, shape), scan_bound(kind, True, shape)
         ck = want[2]
-        extra = ssd_card_checks(ins, grads, ck) if kind == "ssd" else {}
+        extra = scan_card_checks(kind, ins, grads, ck)
         out.append(dict(
             name=f"{kind}_forward", shape=shape, max_abs_err=f_err,
             tolerance={"rtol": ref.FWD_RTOL, "atol": ref.FWD_ATOL},
@@ -1625,54 +1626,64 @@ def scan_checks() -> list:
     return out
 
 
-def ssd_card_checks(ins, grads, ck) -> dict:
-    """The SSD kernels at zamba2-1.2b's layer shape, beyond the check
-    against the plain versions: a second run on the same inputs equal bit
-    for bit (no atomics); a run of 40 tokens whose decay is exactly 0 (la
-    -200: exp underflows) and one of 40 whose decay is 1 (la 0), finite
-    and within the limits of the plain versions; and each call's kernels,
-    grids and threads as the launcher reports them (``last_plan`` of the
-    timed calls; the profiler must see those kernels and no other).
-    {"forward": {...}, "backward": {...}}, each with ``repeat_bitwise``,
-    ``zero_decay_err``, ``plan`` and ``kernel_ms``."""
-    from repro_torch.kernels.ssd_scan import ops, ref
-
-    la, rest = ins[0], ins[1:]
-    dy, dh = grads
-    f1, f2 = ops.ssd_forward(*ins, save=True), ops.ssd_forward(*ins,
-                                                               save=True)
-    b1 = ops.ssd_backward(*ins[:4], ck, dy, dh)
-    b2 = ops.ssd_backward(*ins[:4], ck, dy, dh)
+def scan_card_checks(kind: str, ins, grads, ck) -> dict:
+    """The scan kernels of ``kind`` ("wkv6" or "ssd") at their layer shape,
+    beyond the check against the plain versions: a second run on the same
+    inputs equal bit for bit (no atomics); a run of 40 tokens whose decay is
+    exactly 0 (log decay -200: exp underflows) and one of 40 whose decay is
+    1 (log decay 0), and for RWKV-6 one of 100 tokens of strong decays (log
+    decay down to -20 a token, where folding the decay into r and k over a
+    chunk overflows), finite and within the limits of the plain versions;
+    and each call's kernels, grids and threads as the launcher reports them
+    (``last_plan`` of the timed calls; the profiler must see those kernels
+    and no other).  {"forward": {...}, "backward": {...}}, each with
+    ``repeat_bitwise``, ``zero_decay_err``, ``plan`` and ``kernel_ms``."""
+    if kind == "wkv6":
+        from repro_torch.kernels.wkv6_scan import ops, ref
+        fwd, bwd = ops.wkv6_forward, ops.wkv6_backward
+        fwd_ref, bwd_ref = ref.wkv6_forward_ref, ref.wkv6_backward_ref
+        at, n_in = 3, 5
+    else:
+        from repro_torch.kernels.ssd_scan import ops, ref
+        fwd, bwd = ops.ssd_forward, ops.ssd_backward
+        fwd_ref, bwd_ref = ref.ssd_forward_ref, ref.ssd_backward_ref
+        at, n_in = 0, 4
+    f1, f2 = fwd(*ins, save=True), fwd(*ins, save=True)
+    b1 = bwd(*ins[:n_in], ck, *grads)
+    b2 = bwd(*ins[:n_in], ck, *grads)
     same_f = all(torch.equal(x, y) for x, y in zip(f1, f2))
     same_b = all(torch.equal(x, y) for x, y in zip(b1, b2))
-    check(same_f and same_b, f"ssd kernels differ between two runs: "
+    check(same_f and same_b, f"{kind} kernels differ between two runs: "
                              f"forward {same_f}, backward {same_b}")
     del f1, f2, b1, b2
-    lz = la.clone()
+    lz = ins[at].clone()
     lz[:, 1000:1040] = -200.0
     lz[:, 2000:2040] = 0.0
-    zins = (lz, *rest)
-    got = ops.ssd_forward(*zins, save=True)
-    want = ref.ssd_forward_ref(*zins, save=True)
+    if kind == "wkv6":
+        g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+        lz[:, 3000:3100] = -20.0 * torch.rand(lz[:, 3000:3100].shape,
+                                              generator=g, device="cuda")
+    zins = (*ins[:at], lz, *ins[at + 1:])
+    got = fwd(*zins, save=True)
+    want = fwd_ref(*zins, save=True)
     f_err, f_ok = _errs(got, want, ref.FWD_RTOL, ref.FWD_ATOL)
-    gk = ops.ssd_backward(*zins[:4], want[2], dy, dh)
-    gp = ref.ssd_backward_ref(*zins[:4], want[2], dy, dh)
+    gk = bwd(*zins[:n_in], want[2], *grads)
+    gp = bwd_ref(*zins[:n_in], want[2], *grads)
     b_err, b_ok = _errs(gk, gp, ref.GRAD_RTOL)
     finite = all(bool(torch.isfinite(t).all()) for t in (*got, *gk))
     check(finite and f_ok and b_ok,
-          f"ssd kernels on decays of 0 and 1: finite {finite}, forward err "
-          f"{f_err}, backward err {b_err}")
+          f"{kind} kernels on decays of 0 and 1: finite {finite}, forward "
+          f"err {f_err}, backward err {b_err}")
     del got, want, gk, gp
     out = {}
     for way, wrapper, call in (
-            ("forward", ops.ssd_forward, lambda: ops.ssd_forward(*ins)),
-            ("backward", ops.ssd_backward,
-             lambda: ops.ssd_backward(*ins[:4], ck, dy, dh))):
+            ("forward", fwd, lambda: fwd(*ins)),
+            ("backward", bwd, lambda: bwd(*ins[:n_in], ck, *grads))):
         wrapper.last_plan = None
-        kernel_ms = ssd_kernel_ms(call)
+        kernel_ms = scan_kernel_ms(call, kind)
         plan = wrapper.last_plan
         check(plan is not None and set(plan["grids"]) == set(kernel_ms),
-              f"ssd_{way}: the launcher's plan {plan} does not name the "
+              f"{kind}_{way}: the launcher's plan {plan} does not name the "
               f"kernels the profiler saw, {sorted(kernel_ms)}")
         out[way] = {"repeat_bitwise": same_f if way == "forward" else same_b,
                     "zero_decay_err": f_err if way == "forward" else b_err,
@@ -1680,9 +1691,10 @@ def ssd_card_checks(ins, grads, ck) -> dict:
     return out
 
 
-def ssd_kernel_ms(call, reps: int = 10) -> dict:
-    """Device ms of each kernel one call of an SSD wrapper runs, from
-    torch.profiler's raw events over ``reps`` calls after a warm one."""
+def scan_kernel_ms(call, kind: str, reps: int = 10) -> dict:
+    """Device ms of each kernel one call of a scan wrapper of ``kind`` runs,
+    from torch.profiler's raw events over ``reps`` calls after a warm
+    one."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -1693,7 +1705,7 @@ def ssd_kernel_ms(call, reps: int = 10) -> dict:
         torch.cuda.synchronize()
     out: dict = {}
     for name, (_, ms) in kernel_rows(prof).items():
-        short = re.search(r"(ssd_\w+(?:<\w+>)?)\(", name)
+        short = re.search(rf"({kind}_\w+(?:<\w+>)?)\(", name)
         if short:
             out[short.group(1)] = out.get(short.group(1), 0.0) + ms / reps
     return out
@@ -1857,12 +1869,15 @@ def print_scan_checks(cases: list, card: str) -> None:
               f"{c['bound_with_checkpoints_ms']:.4f} ms; {card}",
               flush=True)
         if "plan" in c:
-            print(f"ssd plan {c['name']}: {json.dumps(c['plan'])}; device "
+            print(f"{c['name'].split('_')[0]} plan {c['name']}: "
+                  f"{json.dumps(c['plan'])}; device "
                   f"ms a call by kernel {json.dumps(c['kernel_ms'])}; kernel "
                   f"{c['ms']:.4f} ms against bound {c['bound_ms']:.4f} ms "
                   f"({c['bound_ms'] / c['ms']:.1%}); two runs bit for bit "
-                  f"{c['repeat_bitwise']}; 40 decays of 0 and 40 of 1: max "
-                  f"abs err {c['zero_decay_err']:.3g}; {card}", flush=True)
+                  f"{c['repeat_bitwise']}; 40 decays of 0 and 40 of 1"
+                  f"{', 100 strong' if c['name'].startswith('wkv6') else ''}"
+                  f": max abs err {c['zero_decay_err']:.3g}; {card}",
+                  flush=True)
 
 
 def ctr_payload_bound(shape, dtype) -> dict:

@@ -7,8 +7,9 @@ Per head (dim hd), the WKV state S is [hd_k, hd_v]:
 with w_t = exp(-exp(w_base + LoRA_w(x~_t))) the data-dependent decay,
 token-shift mixing x~ = lerp(x_t, x_{t-1}, mu + LoRA(x)), and a
 channel-mix FFN (squared ReLU).  The recurrence runs in float32 through
-``kernels.wkv6_scan`` (a CUDA scan kernel with its backward on the card,
-the plain per-token loop on the CPU), the layer scan as a Python loop over
+``kernels.wkv6_scan`` (CUDA chunked-scan kernels with their backward on
+the card, the same chunked algorithm in torch on the CPU), which takes the
+log decay -exp(w_base + LoRA_w(x~_t)); the layer scan is a Python loop over
 layers; decode carries (S, shift states), O(1) state.
 
 Sealed serving: the state is resealed whole every decode step under the
@@ -147,10 +148,11 @@ def time_mix(p, cfg, x, prev_x, state):
     g = F.silu(m["g"] @ p["wg"])
     w_log = p["w_base"].float() + \
         torch.tanh(m["w"] @ p["w_lora_a"]).float() @ p["w_lora_b"].float()
-    w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, hd)            # in (0,1)
-    # the WKV recurrence: one scan op (the card's kernel, the plain loop on
-    # the CPU, shapes only on the meta device)
-    y, state = wkv_ops.wkv6_scan(r, k, v, w, p["u"].float(), state)
+    # the log decay: w = exp(lw) in [0, 1)
+    lw = -torch.exp(w_log).reshape(B, S, H, hd)
+    # the WKV recurrence: one scan op (the card's kernels, their chunked
+    # algorithm on the CPU, shapes only on the meta device)
+    y, state = wkv_ops.wkv6_scan(r, k, v, lw, p["u"].float(), state)
     y = y.reshape(B, S, D).to(x.dtype)
     y = L.rms_norm(y, p["ln_x"], cfg.norm_eps)                       # per channel
     return (y * g) @ p["wo"], x[:, -1, :], state

@@ -383,13 +383,12 @@ def test_scan_bounds_count_bytes_and_flops_once():
     """One layer's scan over 4096 tokens: rwkv6-3b (40 heads of 64) and
     zamba2-1.2b (64 heads of p 64, N 64).  The bound counts each call's
     own inputs and outputs once and its FLOPs, and all four are bound by
-    the float32 FLOPs; training's checkpoints (512 a head for the WKV, 64
-    for the SSD) come apart; the bound that counts them is the WKV's bytes,
-    and the slower of the SSD's bytes and FLOPs."""
+    the float32 FLOPs; training's checkpoints (64 a head for both) come
+    apart; the bound that counts them is the slower of bytes and FLOPs."""
     shapes = chip_smoke.scan_shapes()
     assert shapes == {"wkv6": (1, 4096, 40, 64), "ssd": (1, 4096, 64, 64,
                                                          64)}
-    x, st, ck = 4096 * 40 * 64, 40 * 64 * 64, 512 * 40 * 64 * 64
+    x, st, ck = 4096 * 40 * 64, 40 * 64 * 64, 64 * 40 * 64 * 64
     f = chip_smoke.scan_bound("wkv6", False, shapes["wkv6"])
     assert f["bytes"] == 4 * (5 * x + 40 * 64 + 2 * st)
     assert f["flops"] == 7 * 4096 * 40 * 64 * 64
@@ -411,7 +410,7 @@ def test_scan_bounds_count_bytes_and_flops_once():
         assert r["bound_by"] == "operations"
         assert r["bound_ms"] == pytest.approx(ops_ms)
         assert r["bound_with_checkpoints_ms"] == pytest.approx(
-            max(bytes_ms, ops_ms) if r in ssd else bytes_ms)
+            max(bytes_ms, ops_ms))
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])

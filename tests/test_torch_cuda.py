@@ -502,13 +502,13 @@ def test_byte_payloads_seal_on_the_card_as_on_the_cpu(gen, shape):
 
 
 def wkv6_operands(gen, B, S, H, hd=64):
-    """RWKV-6 scan inputs at the model's scales: r, k, v ~ N(0, 1), decay
-    w = exp(-exp(N(0, 1) - 3)), u ~ 0.1 N(0, 1), a nonzero initial state,
+    """RWKV-6 scan inputs at the model's scales: r, k, v ~ N(0, 1), the log
+    decay lw = -exp(N(0, 1) - 3), u ~ 0.1 N(0, 1), a nonzero initial state,
     and the gradients dy, ds of y and of the final state."""
     def n(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    w = torch.exp(-torch.exp(n(B, S, H, hd) - 3))
-    return (n(B, S, H, hd), n(B, S, H, hd), n(B, S, H, hd), w,
+    lw = -torch.exp(n(B, S, H, hd) - 3)
+    return (n(B, S, H, hd), n(B, S, H, hd), n(B, S, H, hd), lw,
             0.1 * n(H, hd), n(B, H, hd, hd)), (n(B, S, H, hd),
                                                n(B, H, hd, hd))
 
@@ -528,24 +528,96 @@ def within(got, want, rtol, atol=0.0):
         rtol * want.abs().max().item() + atol)
 
 
-# S 1, S off the checkpoint interval, several chunks, B 16 (rwkv6-3b's and
-# zamba2-1.2b's TRAIN_MICROBATCH), one rwkv6-3b sequence of 4096 tokens
-@pytest.mark.parametrize("B, S, H", [(1, 1, 2), (2, 13, 3), (1, 64, 40),
-                                     (16, 37, 4), (1, 4096, 40)])
-def test_wkv6_kernels_match_plain_version(gen, B, S, H):
+def check_wkv6_kernels(ins, dy, ds):
+    """The WKV-6 wrappers once each way (one launch each) against the plain
+    per-token versions, within the stated limits, outputs finite."""
     from repro_torch.kernels.wkv6_scan import ops, ref
-    ins, (dy, ds) = wkv6_operands(gen, B, S, H)
     f0, b0 = ops.wkv6_forward.launches, ops.wkv6_backward.launches
     got = ops.wkv6_forward(*ins, save=True)
     want = ref.wkv6_forward_ref(*ins, save=True)
-    for g, w in zip(got, want):
-        assert within(g, w, ref.FWD_RTOL, ref.FWD_ATOL)
     grads = ops.wkv6_backward(*ins[:5], want[2], dy, ds)
     torch.cuda.synchronize()
     assert (ops.wkv6_forward.launches, ops.wkv6_backward.launches) == (
         f0 + 1, b0 + 1)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert within(g, w, ref.FWD_RTOL, ref.FWD_ATOL)
     for g, w in zip(grads, ref.wkv6_backward_ref(*ins[:5], want[2], dy, ds)):
+        assert torch.isfinite(g).all()
         assert within(g, w, ref.GRAD_RTOL)
+
+
+# S 1, S off the checkpoint interval, one and two past a chunk of 64,
+# several chunks, B 16 (rwkv6-3b's and zamba2-1.2b's TRAIN_MICROBATCH), one
+# rwkv6-3b sequence of 4096 tokens
+@pytest.mark.parametrize("B, S, H", [(1, 1, 2), (2, 13, 3), (1, 64, 40),
+                                     (2, 65, 3), (1, 200, 4), (16, 37, 4),
+                                     (1, 4096, 40)])
+def test_wkv6_kernels_match_plain_version(gen, B, S, H):
+    ins, (dy, ds) = wkv6_operands(gen, B, S, H)
+    check_wkv6_kernels(ins, dy, ds)
+
+
+def test_wkv6_kernels_on_strong_decays_and_decays_of_zero_and_one(gen):
+    """rwkv6-3b's layer shape with 300 tokens of strong decays (log decay
+    down to -20 a token, where a fold of the decay into r and k over a
+    chunk overflows), a run of 40 tokens whose decay is exactly 0 (-200:
+    exp underflows), one of 70 across a chunk boundary (-inf) and one of
+    40 whose decay is 1 (0)."""
+    ins, (dy, ds) = wkv6_operands(gen, 1, 4096, 40)
+    lw = ins[3]
+    lw[:, 500:800] = -20.0 * torch.rand(lw[:, 500:800].shape, generator=gen,
+                                        device="cuda")
+    lw[:, 1000:1040] = -200.0
+    lw[:, 3000:3070] = -float("inf")
+    lw[:, 2000:2040] = 0.0
+    check_wkv6_kernels(ins, dy, ds)
+
+
+def test_wkv6_kernels_repeat_bit_for_bit(gen):
+    """Two runs on the same inputs at rwkv6-3b's layer shape give equal
+    outputs and gradients (no atomics: every sum in a fixed order)."""
+    from repro_torch.kernels.wkv6_scan import ops
+    ins, (dy, ds) = wkv6_operands(gen, 1, 4096, 40)
+    runs = []
+    for _ in range(2):
+        y, s, ck = ops.wkv6_forward(*ins, save=True)
+        runs.append((y, s, ck, *ops.wkv6_backward(*ins[:5], ck, dy, ds)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B, S, H", [(1, 4096, 40), (3, 1, 40),
+                                     (2, 65, 3)])
+def test_scan_launchers_report_the_grids_they_used(gen, B, S, H):
+    """Each wrapper's ``last_plan`` is the launcher's own report: three
+    kernels a call, 256 threads, the chunk kernels over (chunks, H, B) for
+    the WKV (chunks, head groups, B for the SSD) and the carry one thread
+    a state entry."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.wkv6_scan import ops as wops
+    ins, (dy, ds) = wkv6_operands(gen, B, S, H)
+    _, _, ck = wops.wkv6_forward(*ins, save=True)
+    wops.wkv6_backward(*ins[:5], ck, dy, ds)
+    nch = -(-S // 64)
+    carry = -(-B * H * 64 * 64 // 256)
+    for wrapper, names in ((wops.wkv6_forward, wops.FORWARD_KERNELS),
+                           (wops.wkv6_backward, wops.BACKWARD_KERNELS)):
+        plan = wrapper.last_plan
+        assert plan["kernels_per_call"] == 3 and plan["threads"] == 256
+        assert plan["grids"] == {names[0]: [nch, H, B],
+                                 names[1]: [carry, 1, 1],
+                                 names[2]: [nch, H, B]}
+    sins, (sdy, sdh) = ssd_operands(gen, B, S, H, 64, 64)
+    _, _, sck = sops.ssd_forward(*sins, save=True)
+    sops.ssd_backward(*sins[:4], sck, sdy, sdh)
+    for wrapper, names in ((sops.ssd_forward, sops.FORWARD_KERNELS),
+                           (sops.ssd_backward, sops.BACKWARD_KERNELS)):
+        plan = wrapper.last_plan
+        g = plan["heads_per_block"]
+        assert plan["grids"] == {names[0]: [nch, -(-H // g), B],
+                                 names[1]: [carry, 1, 1],
+                                 names[2]: [nch, -(-H // g), B]}
 
 
 @pytest.mark.parametrize("B, S, H, P, N", [

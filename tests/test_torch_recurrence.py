@@ -5,8 +5,8 @@
   against torch autograd through the per-token loop, in float64: one
   token, lengths off the checkpoint interval, several chunks, a nonzero
   initial state, a gradient into the final state, B > 1; and the custom op
-  (float32; for the SSD the kernels' chunked algorithm) within the stated
-  limits of the same.  The SSD takes the log decay.
+  (float32; the kernels' chunked algorithm) within the stated limits of
+  the same.  Both scans take the log decay.
 * ``rwkv.time_mix`` and ``ssm.m2_forward`` at SMOKE size with layer 0 of
   the reference's ``init`` carried across as numpy: the forward within
   1e-5 max|ref| + 1e-6 of the JAX package's, and the VJP by ``jax.vjp``
@@ -40,12 +40,10 @@ from repro_torch.models import ssm as tssm  # noqa: E402
 torch.set_num_threads(1)
 
 EXACT = 1e-10        # float64: the explicit backward against autograd
-# one token; lengths off the checkpoint interval (the WKV's 8) with a
-# nonzero initial state and a gradient into the final state; several chunks
-# at B > 1
+# one token; lengths off the checkpoint interval of 64 with a nonzero
+# initial state and a gradient into the final state; B > 1; and past it:
+# one token into a second chunk, several chunks at B > 1
 LENGTHS = [(1, 1), (1, 13), (2, 21), (3, 16)]
-# the same, and past the SSD's interval of 64: one token into a second
-# chunk, several chunks at B > 1
 SSD_LENGTHS = LENGTHS + [(1, 65), (2, 130)]
 
 
@@ -54,8 +52,9 @@ def within(got, want, rtol, atol=0.0):
     return np.abs(got - want).max() <= rtol * np.abs(want).max() + atol
 
 
-def wkv_loop(r, k, v, w, u, s):
+def wkv_loop(r, k, v, lw, u, s):
     ys = []
+    w = torch.exp(lw)
     for t in range(r.shape[1]):
         kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
@@ -76,9 +75,9 @@ def ssd_loop(la, x, b, c, h):
 
 def wkv_inputs(rng, B, S, H=3, hd=5):
     r, k, v = (rng.standard_normal((B, S, H, hd)) for _ in range(3))
-    w = np.exp(-np.exp(rng.standard_normal((B, S, H, hd)) - 1))
+    lw = -np.exp(rng.standard_normal((B, S, H, hd)) - 1)
     return [torch.from_numpy(x) for x in (
-        r, k, v, w, 0.3 * rng.standard_normal((H, hd)),
+        r, k, v, lw, 0.3 * rng.standard_normal((H, hd)),
         rng.standard_normal((B, H, hd, hd)))]
 
 
@@ -98,7 +97,7 @@ def autograd_of(loop, ins, rng):
     return (y.detach(), s.detach()), dy, ds, grads
 
 
-@pytest.mark.parametrize("B, S", LENGTHS)
+@pytest.mark.parametrize("B, S", SSD_LENGTHS)
 def test_wkv6_plain_scan_and_backward_match_autograd_of_the_loop(B, S):
     rng = np.random.RandomState(S)
     ins = wkv_inputs(rng, B, S)
@@ -209,7 +208,7 @@ def test_m2_forward_and_vjp_match_the_reference():
 @pytest.mark.parametrize("save", [False, True])
 def test_scans_on_meta_give_shapes_and_count_launches(save):
     """One forward each, and with checkpoints one backward: outputs of the
-    right shapes (checkpoints [B, ceil(S/8), H, hd, hd] for the WKV,
+    right shapes (checkpoints [B, ceil(S/64), H, hd, hd] for the WKV,
     [B, ceil(S/64), H, p, N] for the SSD, dB and dC per head), one meta
     launch each, no real launch."""
     B, S, H, hd, P, N = 2, 20, 3, 64, 16, 8
@@ -225,7 +224,7 @@ def test_scans_on_meta_give_shapes_and_count_launches(save):
                                     save)
     assert (tuple(y.shape), tuple(s.shape)) == ((B, S, H, hd),
                                                 (B, H, hd, hd))
-    assert tuple(ck.shape) == ((B, 3, H, hd, hd) if save else (0,))
+    assert tuple(ck.shape) == ((B, 1, H, hd, hd) if save else (0,))
     y2, h, ck2 = ssd_ops.ssd_forward(m(B, S, H), m(B, S, H, P), m(B, S, N),
                                      m(B, S, N), m(B, H, P, N), save)
     assert (tuple(y2.shape), tuple(h.shape)) == ((B, S, H, P), (B, H, P, N))

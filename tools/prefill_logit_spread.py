@@ -58,11 +58,11 @@ def _late(x):
 def wrong_scans(kind: str):
     kernel_wkv, kernel_ssd = wkv_ops.wkv6_scan, ssd_ops.ssd_scan
 
-    def no_u(r, k, v, w, u, s):
-        return kernel_wkv(r, k, v, w, torch.zeros_like(u), s)
+    def no_u(r, k, v, lw, u, s):
+        return kernel_wkv(r, k, v, lw, torch.zeros_like(u), s)
 
-    def late_w(r, k, v, w, u, s):
-        return kernel_wkv(r, k, v, _late(w), u, s)
+    def late_w(r, k, v, lw, u, s):
+        return kernel_wkv(r, k, v, _late(lw), u, s)
 
     def no_input(la, dtx, b, c, h):
         y, h_out = kernel_ssd(la, dtx, b, c, h)
