@@ -144,7 +144,20 @@ From the root of a checkout:  python3 chip_smoke.py
    own on the host, a fake group of 2 on the meta device) of the serving
    prefill, decode step and the sharded train step gives the gloo calls
    and bytes and the CTR and MAC launches the card counted in every call;
-12. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+12. runs the examples phase (``examples_phase``): the four examples of
+   ``examples/*_torch.py`` through their ``run`` at their own sizes —
+   secure serving (sealed tokens equal the plaintext engine's), the
+   quickstart (tamper detected, ``6/6 done, swaps out/in 2/2``), sealed
+   training at ``--full100m`` (768 wide, 10 layers, vocab 32768) for 30
+   steps through an injected failure (the loss falls, the state stays on
+   the card), and the multipod example as two gloo processes (pods) on
+   the card for 8 steps (equal sealed states after every step, the loss
+   falls on both; gloo calls timed by ``_collective_clock``; one pod's
+   int8 payload seal against its bound) — then the serve launcher with
+   ``--trace`` and ``--audit`` and the three tools on its files
+   (``verify_audit_torch`` exits 0, and 1 on a copy with one record
+   edited; ``trace2perfetto_torch``; ``obs_dash_torch``);
+13. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Each path's kernel launch counts are zeroed just before it runs and read
@@ -1895,6 +1908,38 @@ def ctr_payload_bound(shape, dtype) -> dict:
             "bound_ms": ms, "bound_by": by}
 
 
+def payload_seal(tree: dict, key, quantize: bool) -> dict:
+    """One pod's seal of a cross-pod gradient payload through the CTR
+    kernel (each leaf in a CUDA graph; int8 values and f32 block scales
+    when quantizing) against its bound: {ms, bytes, alu_ops, bound_ms,
+    bound_by}."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import cipher
+    from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.parallel import compress
+
+    tkeys = cipher.derive_tensor_key(key.reshape(1, 2), 7)
+    ms = 0.0
+    bound = {"bytes": 0, "alu_ops": 0}
+    for x in tree.values():
+        parts = list(compress.quantize_int8(x)) if quantize else [x]
+        for p in parts:
+            raw = p.contiguous().view(cipher.uint_dtype_for(p.dtype))
+            if raw.element_size() == 1:
+                raw = F.pad(raw, (0, (-raw.shape[-1]) % 4)
+                            ).contiguous().view(torch.int32)
+            x3 = raw.reshape(1, -1, raw.shape[-1])
+            ms += graph_ms(lambda x3=x3: ctr_ops.ctr_xor(x3, tkeys), reps=3)
+            b = ctr_payload_bound(tuple(p.shape), p.dtype)
+            bound["bytes"] += b["bytes"]
+            bound["alu_ops"] += b["alu_ops"]
+            del raw, x3
+        del parts
+    bms, by = bound_of(bound["bytes"], bound["alu_ops"])
+    return {"ms": ms, **bound, "bound_ms": bms, "bound_by": by}
+
+
 def crosspod_check(grads, key) -> dict:
     """``make_crosspod_grad_hook`` over one step's gradients in a one-process
     NCCL group: with one pod the hook seals, gathers, unseals and divides
@@ -1903,10 +1948,7 @@ def crosspod_check(grads, key) -> dict:
     the hook's wall time and launches, and one pod's seal of the payload
     through the CTR kernel (each leaf in a CUDA graph) against its bound."""
     import torch.distributed as dist
-    import torch.nn.functional as F
 
-    from repro_torch.core import cipher
-    from repro_torch.kernels.ctr_cipher import ops as ctr_ops
     from repro_torch.parallel import collectives, compress
 
     torch.cuda.set_device(0)
@@ -1917,7 +1959,6 @@ def crosspod_check(grads, key) -> dict:
         tree = {f"{i:03d}": g.to("cuda") for i, g in enumerate(grads)}
         payload_bytes = sum(g.numel() * g.element_size()
                             for g in tree.values())
-        tkeys = cipher.derive_tensor_key(key.reshape(1, 2), 7)
         for quantize in (False, True):
             hook = collectives.make_crosspod_grad_hook(key, 1,
                                                        quantize=quantize)
@@ -1942,28 +1983,11 @@ def crosspod_check(grads, key) -> dict:
                           f"crosspod hook changed leaf {k}")
             check(worst <= 1 + 1e-4, f"crosspod int8 error {worst} steps")
             del got
-            ms = 0.0
-            bound = {"bytes": 0, "alu_ops": 0}
-            for x in tree.values():
-                parts = (list(compress.quantize_int8(x)) if quantize
-                         else [x])
-                for p in parts:
-                    raw = p.contiguous().view(cipher.uint_dtype_for(p.dtype))
-                    if raw.element_size() == 1:
-                        raw = F.pad(raw, (0, (-raw.shape[-1]) % 4)
-                                    ).contiguous().view(torch.int32)
-                    x3 = raw.reshape(1, -1, raw.shape[-1])
-                    ms += graph_ms(lambda x3=x3: ctr_ops.ctr_xor(x3, tkeys),
-                                   reps=3)
-                    b = ctr_payload_bound(tuple(p.shape), p.dtype)
-                    bound["bytes"] += b["bytes"]
-                    bound["alu_ops"] += b["alu_ops"]
-                    del raw, x3
-                del parts
-            bms, by = bound_of(bound["bytes"], bound["alu_ops"])
+            seal = payload_seal(tree, key, quantize)
             out["int8" if quantize else "f32"] = dict(
-                wall_ms=wall_ms, launches=launches, ctr_ms=ms,
-                ctr_bound_ms=bms, bound_by=by, ctr_bytes=bound["bytes"],
+                wall_ms=wall_ms, launches=launches, ctr_ms=seal["ms"],
+                ctr_bound_ms=seal["bound_ms"], bound_by=seal["bound_by"],
+                ctr_bytes=seal["bytes"],
                 worst_int8_steps=worst if quantize else None)
         out["payload_bytes"] = payload_bytes
         out["leaves"] = len(tree)
@@ -3534,11 +3558,26 @@ def parallel_phase() -> dict:
         shutil.rmtree(dry_dir, ignore_errors=True)
 
 
+def _spawn_ranks(fn, args: tuple, nprocs: int, what: str) -> None:
+    """``fn(rank, port, *args)`` in ``nprocs`` spawned processes; fails the
+    run unless all end well within ``PAR_TIMEOUT_S``."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(_free_port(), *args), nprocs=nprocs,
+                             join=False, start_method="spawn")
+    t_end = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=2):
+            check(time.monotonic() < t_end,
+                  f"{what} did not end in {PAR_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+
+
 def _parallel_body(dry, dry_dir: str) -> dict:
     """``parallel_phase`` with the dry run's process ``dry`` started."""
     import tempfile
-
-    import torch.multiprocessing as mp
 
     from repro_torch.launch import steps
     from repro_torch.models import transformer as TF
@@ -3583,17 +3622,7 @@ def _parallel_body(dry, dry_dir: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         parent_bytes = torch.cuda.memory_reserved()
-        ctx = mp.start_processes(_par_rank, args=(_free_port(), tmp, path),
-                                 nprocs=2, join=False, start_method="spawn")
-        t_end = time.monotonic() + PAR_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=2):
-                check(time.monotonic() < t_end, f"the parallel phase's ranks "
-                      f"did not end in {PAR_TIMEOUT_S} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.terminate()
+        _spawn_ranks(_par_rank, (tmp, path), 2, "the parallel phase's ranks")
         ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
                  for r in range(2)]
         serve_one, want = serve_one_process()
@@ -3677,6 +3706,288 @@ def _parallel_body(dry, dry_dir: str) -> dict:
             "parent_reserved_bytes": parent_bytes,
             "dryrun_s": dry_out["s"],
             "seconds": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------------------
+# the examples phase: the four examples, the serve launcher and the three
+# observability tools of the checkout, on the card
+# ---------------------------------------------------------------------------
+
+EX_TRAIN_STEPS, EX_MULTIPOD_STEPS = 30, 8     # the examples' own defaults
+
+
+def _script(folder: str, name: str):
+    """``<folder>/<name>.py`` of the checkout as a module.  The folder joins
+    sys.path, so processes spawned from here import it too."""
+    import importlib
+    path = str(ROOT / folder)
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def _multipod_rank(pod: int, port: int, out_dir: str, kwargs: dict) -> None:
+    """One pod of the multipod example on the card (its ``train_pod``), its
+    gloo calls counted and timed by ``_collective_clock`` and its CTR and
+    MAC launches read over the whole run; the result goes to
+    ``out_dir/pod<p>.json``."""
+    ex = _script("examples", "multipod_training_torch")
+    zero_launches()
+    with _collective_clock() as clock:
+        res = ex.train_pod(pod, port, **kwargs)
+    res["gloo"] = clock.take()
+    res["launches"] = read_launches()
+    Path(f"{out_dir}/pod{pod}.json").write_text(json.dumps(res))
+
+
+def _payload_tree(cfg) -> dict:
+    """Gradients of ``cfg``'s parameter shapes on the card, N(0, 1), by
+    leaf order (the cross-pod hook's payload)."""
+    from repro_torch.models import registry
+    params = registry.get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    return {f"{i:03d}": torch.randn(x.shape, generator=gen, device="cuda")
+            for i, x in enumerate(_leaves(params))}
+
+
+def examples_phase() -> dict:
+    """The four examples through their ``run`` on the card at their own
+    sizes, then the serve launcher with ``--trace`` and ``--audit`` and the
+    three tools on its files.  Every check raises; each part's launches
+    are zeroed just before it and read just after."""
+    import io
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.core import SecureChannel
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import steps as steps_lib
+
+    out = {}
+    t_phase = time.perf_counter()
+    # secure serving: granite-3-2b SMOKE, sealed against plaintext
+    ex = _script("examples", "secure_serving_torch")
+    vocab = configs.get_config("granite-3-2b", smoke=True).vocab
+    zero_launches()
+    t0 = time.perf_counter()
+    r = ex.run("cuda")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(r["sealed_equals_plain"],
+          "secure_serving: sealed tokens differ from the plaintext engine's")
+    check(r["tokens"].shape == (ex.BATCH, ex.N_NEW)
+          and ((r["tokens"] >= 0) & (r["tokens"] < vocab)).all(),
+          f"secure_serving: bad tokens {r['tokens']}")
+    check(launches["ctr_cipher"] > 0 and launches["tree_mac"] > 0,
+          f"secure_serving launched {launches}")
+    out["serving"] = {"wall_s": wall, "sealed_ms": r["ms"],
+                      "launches": launches,
+                      "launches_verified": r["launches_verified"],
+                      "first_tokens": r["tokens"][:, 0].tolist()}
+
+    # quickstart: handshake, seal, serve, tamper, two tenants, preemption
+    ex = _script("examples", "quickstart_torch")
+    zero_launches()
+    t0 = time.perf_counter()
+    r = ex.run("cuda")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    o = r["oversubscribed"]
+    last = (f"{o['statuses'].count('done')}/{o['requests']} done, "
+            f"swaps out/in {o['swap_outs']}/{o['swap_ins']}")
+    check(last == "6/6 done, swaps out/in 2/2", f"quickstart ended {last}")
+    check(not r["tamper_ok"], "quickstart: the tampered ciphertext verified")
+    check(r["tokens"].shape == (2, 8) and len(r["alice"]) == 6
+          and len(r["bob"]) == 6 and r["gateway"]["tokens"] == 12,
+          f"quickstart: short streams {r['tokens']} {r['alice']} {r['bob']}")
+    check(launches["ctr_cipher"] > 0 and launches["tree_mac"] > 0,
+          f"quickstart launched {launches}")
+    out["quickstart"] = {
+        "wall_s": wall, "last": last, "launches": launches,
+        "ciphertext_words": r["ciphertext_words"],
+        "sealed_bytes_per_token": r["gateway"]["sealed_bytes_per_token"],
+        "page_closes": r["gateway"]["page_closes"],
+        "occupancy_pct": o["occupancy_pct"]}
+
+    # secure training at --full100m: 30 steps through the injected failure
+    ex = _script("examples", "secure_training_torch")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    r = ex.run("cuda", steps=EX_TRAIN_STEPS, **ex.FULL100M)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ev, losses = r["events"], r["losses"]
+    check(losses[-1] < losses[0], f"secure_training: loss {losses[0]} -> "
+                                  f"{losses[-1]}")
+    check(ev["failures"] == 1 and ev["restarts"] == 1,
+          f"secure_training events {ev}")
+    check(r["final_step"] == EX_TRAIN_STEPS and all(r["seal_ok"]),
+          f"secure_training ended at {r['final_step']}, seal_ok "
+          f"{r['seal_ok']}")
+    check(all(x.is_cuda for x in _leaves(r["final_state"].params)),
+          "secure_training: the final state left the card")
+    check(all(launches[k] >= len(losses) for k in ("ctr_cipher", "tree_mac")),
+          f"secure_training: {launches} launches over {len(losses)} steps")
+    out["training"] = {
+        "wall_s": wall, "n_params": r["n_params"], "losses": losses,
+        "executed_steps": len(losses), "events": ev,
+        "step_s": r["step_s"], "peak_bytes": peak, "launches": launches}
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # multipod: the example's host handshake, then its two pods as two gloo
+    # processes on the card, each counted by _multipod_rank
+    ex = _script("examples", "multipod_training_torch")
+    channel = SecureChannel.establish(device="cuda")
+    kwargs = dict(key_words=channel.key_words.tolist(),
+                  key_bytes=channel.key_bytes, steps=EX_MULTIPOD_STEPS,
+                  device="cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pods_") as tmp:
+        _spawn_ranks(_multipod_rank, (tmp, kwargs), ex.N_PODS,
+                     "the multipod example's pods")
+        res = [json.loads(Path(f"{tmp}/pod{p}.json").read_text())
+               for p in range(ex.N_PODS)]
+    wall = time.perf_counter() - t0
+    check(len({tuple(p["digests"]) for p in res}) == 1,
+          "multipod: the pods' sealed states differ")
+    check(all(p["losses"][-1] < p["losses"][0] for p in res),
+          "multipod: the loss did not fall on every pod: "
+          + json.dumps([p["losses"] for p in res]))
+    pods = []
+    for p in res:
+        n = len(p["losses"])
+        gather = p["gloo"]["all_gather_into_tensor"]
+        check(all(p["seal_ok"]) and n == EX_MULTIPOD_STEPS,
+              f"multipod pod {p['pod']}: seal_ok {p['seal_ok']}")
+        check(p["launches"]["ctr_cipher"] >= n and gather["calls"] >= n,
+              f"multipod pod {p['pod']}: {p['launches']} launches, "
+              f"{gather['calls']} all-gathers over {n} steps")
+        pods.append({
+            "pod": p["pod"], "losses": p["losses"], "step_s": p["step_s"],
+            "launches": p["launches"],
+            "gloo_s_per_step": sum(op["s"] for op in p["gloo"].values()) / n,
+            "gather_calls_per_step": gather["calls"] / n,
+            "payload_bytes_per_step": gather["bytes"] / n / ex.N_PODS})
+    cfg = steps_lib.make_cell("granite-3-2b", "train_4k", smoke=True).cfg
+    key = torch.tensor(steps_lib.CELL_KEY, dtype=torch.int32, device="cuda")
+    seal = payload_seal(_payload_tree(cfg), key, quantize=True)
+    out["multipod"] = {"wall_s": wall, "mesh": res[0]["mesh"], "pods": pods,
+                       "seal": seal}
+
+    # the serve launcher's trace, audit and metrics through the three tools
+    va = _script("tools", "verify_audit_torch")
+    t2p = _script("tools", "trace2perfetto_torch")
+    od = _script("tools", "obs_dash_torch")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as d:
+        audit, trace = f"{d}/audit.jsonl", f"{d}/trace.jsonl"
+        zero_launches()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gw = serve_launch.main(["--arch", "granite-3-2b", "--trace",
+                                    f"{d}/trace.json", "--audit", audit])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check("chain OK" in buf.getvalue(),
+              f"serve launcher: {buf.getvalue()[-400:]}")
+        n_events = gw.export_trace(trace, fmt="jsonl")
+        Path(f"{d}/metrics.prom").write_text(gw.metrics_text())
+        rc_ok = va.main([audit, audit + ".key", "--quiet"])
+        lines = Path(audit).read_text().splitlines()
+        rec = json.loads(lines[1])
+        rec["kind"] = rec["kind"] + "-edited"
+        lines[1] = json.dumps(rec, sort_keys=True)
+        Path(f"{d}/edited.jsonl").write_text("\n".join(lines) + "\n")
+        rc_edit = va.main([f"{d}/edited.jsonl", audit + ".key", "--quiet"])
+        check(rc_ok == 0 and rc_edit == 1,
+              f"verify_audit_torch exited {rc_ok} on the export, {rc_edit} "
+              "on the edited copy (want 0, 1)")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_t = t2p.main([trace, f"{d}/trace.chrome.json"])
+        events = json.loads(Path(f"{d}/trace.chrome.json").read_text())
+        check(rc_t == 0 and len(events["traceEvents"]) == n_events > 0,
+              f"trace2perfetto_torch: rc {rc_t}, "
+              f"{len(events['traceEvents'])} of {n_events} events")
+        dash = io.StringIO()
+        with contextlib.redirect_stdout(dash):
+            rc_d = od.main([f"{d}/metrics.prom", audit])
+        check(rc_d == 0 and "secure-gateway posture" in dash.getvalue(),
+              f"obs_dash_torch: rc {rc_d}")
+        check(launches["ctr_cipher"] > 0 and launches["tree_mac"] > 0,
+              f"serve launcher launched {launches}")
+        out["tools"] = {
+            "wall_s": wall, "launches": launches, "audit_records":
+            len(lines) - 1, "trace_events": n_events,
+            "verify_rc": [rc_ok, rc_edit], "dash_lines":
+            len(dash.getvalue().splitlines())}
+        del gw
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_examples(ex: dict, card: str) -> None:
+    s, q, t, m, o = (ex[k] for k in ("serving", "quickstart", "training",
+                                     "multipod", "tools"))
+    print(f"examples secure_serving: granite-3-2b SMOKE, 4 x 16-token "
+          f"prompts, 12 new tokens, sealed == plaintext; sealed generation "
+          f"{s['sealed_ms']:.1f} ms, example {s['wall_s']:.2f} s; launches "
+          f"{json.dumps(s['launches'])}; first tokens {s['first_tokens']}; "
+          f"{card}", flush=True)
+    print(f"examples quickstart: {q['ciphertext_words']} ciphertext words; "
+          f"tamper detected; sealed bytes per decode token "
+          f"{q['sealed_bytes_per_token']:.0f} (page closes "
+          f"{q['page_closes']}); oversubscribed -> {q['last']}, occupancy "
+          f"{q['occupancy_pct']:.0f}%; {q['wall_s']:.2f} s; launches "
+          f"{json.dumps(q['launches'])}; {card}", flush=True)
+    st = sorted(t["step_s"])
+    print(f"examples secure_training --full100m: {t['n_params']} params, "
+          f"{t['executed_steps']} executed steps for {EX_TRAIN_STEPS} "
+          f"(failure at {EX_TRAIN_STEPS // 2}); loss {t['losses'][0]:.4f} -> "
+          f"{t['losses'][-1]:.4f}; events {json.dumps(t['events'])}; step "
+          f"{st[len(st) // 2] * 1e3:.1f} ms median ({st[0] * 1e3:.1f}-"
+          f"{st[-1] * 1e3:.1f}); peak memory {t['peak_bytes'] / 2**30:.3f} "
+          f"GiB; (ctr, mac) launches {t['launches']['ctr_cipher']}, "
+          f"{t['launches']['tree_mac']} over the run (seal, restore and "
+          f"unseal included), "
+          f"{t['launches']['ctr_cipher'] / t['executed_steps']:.1f}, "
+          f"{t['launches']['tree_mac'] / t['executed_steps']:.1f} an executed "
+          f"step; {t['wall_s']:.1f} s; {card}", flush=True)
+    for p in m["pods"]:
+        st = sorted(p["step_s"])
+        n = len(p["losses"])
+        print(f"examples multipod pod {p['pod']}: granite-3-2b SMOKE on mesh "
+              f"{json.dumps(m['mesh'])}, losses "
+              f"{' '.join(f'{x:.4f}' for x in p['losses'])}; step "
+              f"{st[len(st) // 2] * 1e3:.1f} ms median; gloo "
+              f"{p['gloo_s_per_step'] * 1e3:.1f} ms a step, "
+              f"{p['gather_calls_per_step']:.1f} all-gathers a step, sealed "
+              f"payload {p['payload_bytes_per_step']:.0f} bytes a step; "
+              f"(ctr, mac) launches {p['launches']['ctr_cipher']}, "
+              f"{p['launches']['tree_mac']} over the run (the state's seal "
+              f"included), {p['launches']['ctr_cipher'] / n:.1f}, "
+              f"{p['launches']['tree_mac'] / n:.1f} a step; {card}",
+              flush=True)
+    sl = m["seal"]
+    print(f"examples multipod: pod states equal after every step; one pod's "
+          f"int8 payload seal through the CTR kernel {sl['ms']:.4f} ms in "
+          f"CUDA graphs over {sl['bytes']} bytes read and written, bound "
+          f"{sl['bound_ms']:.5f} ms ({sl['bound_by']}); two pods "
+          f"{m['wall_s']:.1f} s; {card}", flush=True)
+    print(f"examples tools: serve launcher (granite-3-2b SMOKE, --trace, "
+          f"--audit) {o['wall_s']:.2f} s, launches "
+          f"{json.dumps(o['launches'])}; verify_audit_torch exit "
+          f"{o['verify_rc'][0]} on {o['audit_records']} records, "
+          f"{o['verify_rc'][1]} on a copy with one record edited; "
+          f"trace2perfetto_torch {o['trace_events']} events; obs_dash_torch "
+          f"{o['dash_lines']} lines; {card}", flush=True)
+    print(f"examples: phase {ex['phase_s']:.1f} s; {card}", flush=True)
 
 
 def main() -> int:
@@ -4024,7 +4335,13 @@ def main() -> int:
     print_sharded(par, card)
     print_sharded_serve(par, card)
 
-    # 13. report ----------------------------------------------------------
+    # 13. the four examples, the serve launcher and the three tools -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    exs = examples_phase()
+    print_examples(exs, card)
+
+    # 14. report ----------------------------------------------------------
     sources = {"ctr_cipher": ("src/repro_torch/csrc/ctr_cipher.cu",
                               "src/repro/kernels/ctr_cipher/kernel.py:43"),
                "tree_mac": ("src/repro_torch/csrc/tree_mac.cu",
@@ -4141,6 +4458,11 @@ def main() -> int:
     by_path["parallel sharded serving"] = {
         k: sum(r["sharded_serve"]["launches"][k] for r in par["ranks"])
         for k in launches}
+    by_path["examples"] = {
+        k: (sum(exs[p]["launches"][k] for p in ("serving", "quickstart",
+                                                "training", "tools"))
+            + sum(p["launches"][k] for p in exs["multipod"]["pods"]))
+        for k in launches}
     for arch, f in fams.items():
         by_path[f"{arch} sealed"] = f["sealed"]["launches"]
         if "fused" in f:
@@ -4199,6 +4521,13 @@ def main() -> int:
         mode: {k: xpod[mode][k] for k in ("ctr_ms", "ctr_bound_ms",
                                           "bound_by", "ctr_bytes")}
         for mode in ("f32", "int8")}
+    kernels[0]["crosspod"]["two_pods_int8"] = {
+        "ctr_ms": exs["multipod"]["seal"]["ms"],
+        "ctr_bound_ms": exs["multipod"]["seal"]["bound_ms"],
+        "bound_by": exs["multipod"]["seal"]["bound_by"],
+        "ctr_bytes": exs["multipod"]["seal"]["bytes"],
+        "workload": "one pod's int8 payload of the multipod example "
+                    "(granite-3-2b SMOKE gradients)"}
     for k in kernels[:2]:
         k["train_families"] = {arch: {
             "launches_per_step": f["steps"][0][

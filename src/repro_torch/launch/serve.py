@@ -34,7 +34,7 @@ from ..obs import MonitorConfig, parse_slo_overrides, render_gateway
 from ..serve import SecureGateway, ServeEngine
 
 
-def _run_gateway(cfg, params, args, device) -> None:
+def _run_gateway(cfg, params, args, device) -> SecureGateway:
     mon_cfg = MonitorConfig()
     if args.slo:
         mon_cfg = mon_cfg.overridden(**parse_slo_overrides(args.slo))
@@ -100,9 +100,10 @@ def _run_gateway(cfg, params, args, device) -> None:
         print(f"audit: {args.audit} ({n} records, key in "
               f"{args.audit}.key) — chain "
               f"{'OK' if report['ok'] else 'BROKEN: ' + str(report)}")
+    return gw
 
 
-def _run_fixed(cfg, params, args, device) -> None:
+def _run_fixed(cfg, params, args, device) -> ServeEngine:
     channel = (SecureChannel.establish(device=device)
                if args.security == "trusted"
                else SecureChannel.insecure(device=device))
@@ -129,9 +130,11 @@ def _run_fixed(cfg, params, args, device) -> None:
     print(f"{args.slots} x {args.max_new} tokens in {dt*1e3:.0f} ms "
           f"({args.slots*args.max_new/dt:.1f} tok/s); launches verified: "
           f"{channel.device_regs.last_nonce}")
+    return engine
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Serve; returns the gateway, or the fixed-slot engine."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
     ap.add_argument("--engine", default="gateway",
@@ -180,12 +183,11 @@ def main(argv=None) -> None:
     params = registry.get_model(cfg).init(
         torch.Generator(device=device).manual_seed(0), cfg, device)
     if args.engine == "gateway" and cfg.family == "dense":
-        _run_gateway(cfg, params, args, device)
-    else:
-        if args.engine == "gateway":
-            print(f"{cfg.family} family has no paged path yet; "
-                  "falling back to the fixed-slot engine")
-        _run_fixed(cfg, params, args, device)
+        return _run_gateway(cfg, params, args, device)
+    if args.engine == "gateway":
+        print(f"{cfg.family} family has no paged path yet; "
+              "falling back to the fixed-slot engine")
+    return _run_fixed(cfg, params, args, device)
 
 
 if __name__ == "__main__":

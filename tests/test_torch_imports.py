@@ -1,4 +1,5 @@
-"""The port stands alone: importing it loads neither jax nor ``repro``."""
+"""The port stands alone: importing it, its examples (``examples/*_torch.py``)
+or its tools (``tools/*_torch.py``) loads neither jax nor ``repro``."""
 import os
 import pathlib
 import subprocess
@@ -36,18 +37,34 @@ SLICE_MODULES = (
     "repro_torch.kernels.wkv6_scan.ops", "repro_torch.kernels.wkv6_scan.ref",
     "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref")
 
+# the port's user entry points outside src/: the examples and the tools
+ENTRY_POINTS = ("examples/quickstart_torch.py",
+                "examples/secure_serving_torch.py",
+                "examples/secure_training_torch.py",
+                "examples/multipod_training_torch.py",
+                "tools/verify_audit_torch.py", "tools/obs_dash_torch.py",
+                "tools/trace2perfetto_torch.py")
+
 PROBE = """
-import pkgutil, sys
+import glob, importlib.util, os, pkgutil, sys
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(m.name)
+root = %r
+scripts = sorted(glob.glob(os.path.join(root, "examples", "*_torch.py"))
+                 + glob.glob(os.path.join(root, "tools", "*_torch.py")))
+for path in scripts:
+    name = os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 missing = [m for m in %r if m not in sys.modules]
+missing += [p for p in %r if os.path.join(root, p) not in scripts]
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "repro" or n.startswith("repro."))
 print("LOADED", bad, "MISSING", missing)
 sys.exit(1 if bad or missing else 0)
-""" % (SLICE_MODULES,)
+""" % (str(ROOT), SLICE_MODULES, ENTRY_POINTS)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -59,7 +76,11 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_port_sources_never_name_jax_or_the_reference():
-    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+    paths = [*(ROOT / "src" / "repro_torch").rglob("*.py"),
+             *(ROOT / "examples").glob("*_torch.py"),
+             *(ROOT / "tools").glob("*_torch.py")]
+    assert len(paths) > len(ENTRY_POINTS)
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.strip().split()
             if words[:1] in (["import"], ["from"]):
