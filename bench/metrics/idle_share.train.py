@@ -1,0 +1,7 @@
+"""Share of the traced step's wall time in which no device operation
+ran, %."""
+from benchlib import readers
+
+
+def read(ctx: dict):
+    return readers.idle_share(ctx)

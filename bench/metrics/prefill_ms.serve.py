@@ -1,0 +1,6 @@
+"""Device-synchronised time of one prefill chunk call, ms: the port's
+``Profiler`` phase time, averaged over the window's calls."""
+
+
+def read(ctx: dict):
+    return ctx.get("phase_ms", {}).get("prefill")
