@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from ..kernels import common
 from ..kernels.ctr_cipher import ops as ctr_ops
+from ..obs.trace import TRACER
 
 DERIVE_KEY_TWEAK = 0x5EA1ED
 TENSOR_KEY_TWEAK = 0x7E4503
@@ -139,15 +140,17 @@ def decrypt(ct_words: torch.Tensor, key: torch.Tensor, nonce, shape,
 
 def derive_key(master: torch.Tensor, domain: int) -> torch.Tensor:
     """Derive an int32 [..., 2] subkey from a master key for a domain."""
-    y0, y1 = threefry2x32(master, domain, DERIVE_KEY_TWEAK)
-    return torch.stack([y0, y1], dim=-1)
+    with TRACER.span("seal.derive", cat="seal"):
+        y0, y1 = threefry2x32(master, domain, DERIVE_KEY_TWEAK)
+        return torch.stack([y0, y1], dim=-1)
 
 
 def derive_tensor_key(master: torch.Tensor, nonce) -> torch.Tensor:
     """Per-(tensor, version) key: counter space is then (row, word) within it."""
-    y0, y1 = threefry2x32(master, nonce, TENSOR_KEY_TWEAK)
-    y0, y1 = torch.broadcast_tensors(y0, y1)
-    return torch.stack([y0, y1], dim=-1)
+    with TRACER.span("seal.derive", cat="seal"):
+        y0, y1 = threefry2x32(master, nonce, TENSOR_KEY_TWEAK)
+        y0, y1 = torch.broadcast_tensors(y0, y1)
+        return torch.stack([y0, y1], dim=-1)
 
 
 # ---------------------------------------------------------------------------

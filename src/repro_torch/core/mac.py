@@ -19,6 +19,7 @@ import torch
 
 from ..kernels import common
 from ..kernels.tree_mac import ops as mac_ops
+from ..obs.trace import TRACER
 from . import cipher
 
 MAC_DOMAIN = 0xA11CE
@@ -28,16 +29,18 @@ def nonce_mac_key(master: torch.Tensor, nonce,
                   domain: int = MAC_DOMAIN) -> torch.Tensor:
     """int32 [2] MAC key bound to a tensor's nonce: replaying an old
     (ciphertext, tags) pair under a newer nonce fails its tags."""
-    y0, y1 = cipher.threefry2x32(master, nonce, domain)
-    return torch.stack([y0, y1])
+    with TRACER.span("seal.derive", cat="seal"):
+        y0, y1 = cipher.threefry2x32(master, nonce, domain)
+        return torch.stack([y0, y1])
 
 
 def mac_keys(key: torch.Tensor, n_words: int,
              domain: int = MAC_DOMAIN) -> torch.Tensor:
     """int32 [n_words] (or [N, n_words]) multilinear keys in [0, p)."""
-    sub = cipher.derive_key(key, domain)
-    ks = cipher.keystream_words(sub, 0, n_words)
-    return common.i32(common.canon(common.u32(ks)))
+    with TRACER.span("seal.derive", cat="seal"):
+        sub = cipher.derive_key(key, domain)
+        ks = cipher.keystream_words(sub, 0, n_words)
+        return common.i32(common.canon(common.u32(ks)))
 
 
 def chunk_tags(words: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:

@@ -94,6 +94,7 @@ def _run_gateway(cfg, params, args, device) -> SecureGateway:
         n = gw.export_trace(args.trace, fmt="chrome")
         print(f"trace: {args.trace} ({n} events — load at "
               "https://ui.perfetto.dev)")
+        gw.close()             # the tracer off; its buffer kept
     if args.audit:
         n = gw.export_audit(args.audit, key_path=args.audit + ".key")
         report = gw.verify_audit()

@@ -2,7 +2,9 @@
 
   * ``metrics`` — typed counters / gauges / histograms behind
     ``SecureGateway.metrics()`` and the Prometheus exposition;
-  * ``trace``   — request and engine phase spans, Chrome trace export;
+  * ``trace``   — the process's tracer ``TRACER``: request, scheduler,
+    engine, key-derivation and train-step spans on the profiler's clock,
+    Chrome trace export;
   * ``audit``   — the HMAC-chained log of security events;
   * ``costs``   — per-(phase, tenant) sealed-byte ledger;
   * ``profiler``— device-synchronized phase timing on top of the ledger,
@@ -25,5 +27,5 @@ from .profiler import Profiler  # noqa: F401
 from .rules import (Alert, ChainRule, HeadroomRule,  # noqa: F401
                     MonitorConfig, SloRule, StormRule, default_rules,
                     parse_slo_overrides)
-from .trace import (Tracer, chrome_trace, jsonl_to_chrome,  # noqa: F401
-                    request_tid, TID_ENGINE, TID_REQ_BASE)
+from .trace import (TRACER, Tracer, chrome_trace,  # noqa: F401
+                    jsonl_to_chrome, request_tid, TID_ENGINE)

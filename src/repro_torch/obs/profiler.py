@@ -16,12 +16,11 @@ Usage (the engine host wrappers):
 and registers ``x`` for synchronization: on phase exit the profiler calls
 ``torch.cuda.synchronize()`` when anything was registered, so the closing
 timestamp measures completed device work, not the asynchronous enqueue.
-In the port one "dispatch" is one engine call (there is no jit).
-``ph.sync(x)`` registers without counting (host-side work that returns
-device arrays).  Nested phases are legal — a ``renonce`` wraps only its
-own dispatch while the close/reopen it triggers time themselves — but the
-umbrella ``prefix_publish`` phase deliberately spans its nested phases
-(documented in docs/OBSERVABILITY.md).
+In the port one "dispatch" is one engine call (there is no jit).  Nested
+phases are legal — a ``renonce`` wraps only its own dispatch while the
+close/reopen it triggers time themselves — but the umbrella
+``prefix_publish`` phase deliberately spans its nested phases (documented
+in docs/OBSERVABILITY.md).
 
 Step accounting (the gateway calls these around ``scheduler.step``):
 
@@ -31,9 +30,10 @@ Step accounting (the gateway calls these around ``scheduler.step``):
 
 ``step_end`` diffs the global dispatch counter, records an
 ``(occupancy, dispatches)`` sample for the window, emits Perfetto counter
-tracks (obs/trace.py ``Tracer.counter``) and returns the step's dispatch
-count.  ``dispatches_per_step()`` averages the samples taken at the
-window's maximum observed occupancy — the steady-state number.
+tracks into the process tracer (obs/trace.py ``TRACER.counter``) and
+returns the step's dispatch count.  ``dispatches_per_step()`` averages
+the samples taken at the window's maximum observed occupancy — the
+steady-state number.
 
 All timing/count data is untrusted-side telemetry: wall clocks, ciphertext
 byte counts and dispatch tallies, never plaintext-derived values.
@@ -47,7 +47,7 @@ import torch
 
 from .costs import CostLedger, priced_by
 from .metrics import MetricsRegistry
-from .trace import TID_ENGINE
+from .trace import TID_ENGINE, TRACER
 
 
 def _block_until_ready(obj) -> None:
@@ -74,12 +74,6 @@ class _PhaseHandle:
             self._pending.append(result)
         return result
 
-    def sync(self, result=None):
-        """Register device work for the exit synchronization, uncounted."""
-        if result is not None:
-            self._pending.append(result)
-        return result
-
 
 class _NullHandle:
     """Dispatch-counting no-op for a disabled profiler."""
@@ -91,19 +85,15 @@ class _NullHandle:
     def dispatch(self, result=None):
         return result
 
-    def sync(self, result=None):
-        return result
-
 
 _NULL_HANDLE = _NullHandle()
 
 
 class Profiler:
     def __init__(self, registry: MetricsRegistry | None = None,
-                 tracer=None, enabled: bool = True, chunk_words: int = 128):
+                 enabled: bool = True, chunk_words: int = 128):
         self.enabled = enabled
         self.registry = registry if registry is not None else MetricsRegistry()
-        self.tracer = tracer
         self.ledger = CostLedger(registry=self.registry,
                                  chunk_words=chunk_words)
         self._dispatch_total = 0             # lifetime, monotone
@@ -149,10 +139,9 @@ class Profiler:
         self._step_t0 = None
         self._step_samples.append((int(active), d))
         self._g_dps.set(self.dispatches_per_step())
-        if self.tracer is not None and self.tracer.enabled:
-            self.tracer.counter("dispatches", {"per_step": d},
-                                tid=TID_ENGINE)
-            self.tracer.counter(
+        if TRACER.recording:
+            TRACER.counter("dispatches", {"per_step": d}, tid=TID_ENGINE)
+            TRACER.counter(
                 "sealed_bytes",
                 {b: n for b, n in self.ledger.bucket_bytes.items()},
                 tid=TID_ENGINE)

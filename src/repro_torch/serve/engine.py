@@ -39,7 +39,8 @@ from ..core.channel import SecureChannel
 from ..kernels import common
 from ..models import layers as L
 from ..models import registry, transformer
-from ..obs import Profiler, Tracer
+from ..obs import Profiler
+from ..obs.trace import TRACER
 from . import kv_pager
 
 # domain separator for the fixed-slot engine's KV lane: weight-upload nonces
@@ -147,12 +148,9 @@ class PagedEngine:
     max_slots: int
     max_pages: int                  # page-table columns per sequence
     prefill_chunk: int = 0          # tokens per prefill chunk (0 = max seq)
-    tracer: object = None           # obs.Tracer for engine phase spans
     profiler: object = None         # obs.Profiler — synchronized phase timing
 
     def __post_init__(self):
-        if self.tracer is None:
-            self.tracer = Tracer(enabled=False)
         if self.profiler is None:
             self.profiler = Profiler(enabled=False)
         if self.cfg.family != "dense":
@@ -269,28 +267,31 @@ class PagedEngine:
         dev = pool.device
         ar = torch.arange(B, device=dev)
 
-        params, okp = self._unseal_params()
-        kcache, vcache, ok_seq = self._gather_unseal(page_tables, start,
-                                                     active, okp)
+        with TRACER.span("engine.unseal_params", cat="engine", device=dev):
+            params, okp = self._unseal_params()
+        with TRACER.span("engine.gather_unseal", cat="engine", device=dev):
+            kcache, vcache, ok_seq = self._gather_unseal(page_tables, start,
+                                                         active, okp)
         x = params["embed"][tokens].to(cfg.act_dtype)
         positions = start[:, None] + torch.arange(C, device=dev)[None, :]
         ext = torch.zeros((B, C, K, hd), dtype=cfg.act_dtype, device=dev)
         nk, nv = [], []
-        for l, lp in zip(range(Lc), transformer.layer_stack(params)):
-            def attend(q, kn, vn, l=l):
-                # the cache grows by C rows so an insert at any start <= T
-                # stays in bounds; rows past a lane's last valid query are
-                # causally masked
-                kc2 = torch.cat([kcache[l], ext], dim=1)
-                vc2 = torch.cat([vcache[l], ext], dim=1)
-                kc2[ar[:, None], positions] = kn
-                vc2[ar[:, None], positions] = vn
-                return L.gqa_attention(q, kc2, vc2, causal=True,
-                                       q_block=cfg.q_block,
-                                       base_pos=start), (kn, vn)
-            x, (kn, vn) = self._block(lp, x, positions, attend)
-            nk.append(kn)
-            nv.append(vn)
+        with TRACER.span("engine.layers", cat="engine", device=dev):
+            for l, lp in zip(range(Lc), transformer.layer_stack(params)):
+                def attend(q, kn, vn, l=l):
+                    # the cache grows by C rows so an insert at any
+                    # start <= T stays in bounds; rows past a lane's last
+                    # valid query are causally masked
+                    kc2 = torch.cat([kcache[l], ext], dim=1)
+                    vc2 = torch.cat([vcache[l], ext], dim=1)
+                    kc2[ar[:, None], positions] = kn
+                    vc2[ar[:, None], positions] = vn
+                    return L.gqa_attention(q, kc2, vc2, causal=True,
+                                           q_block=cfg.q_block,
+                                           base_pos=start), (kn, vn)
+                x, (kn, vn) = self._block(lp, x, positions, attend)
+                nk.append(kn)
+                nv.append(vn)
 
         # first-token logits for lanes whose prompt completes in this chunk
         tok = self._emit(params, x[ar, valid - 1][:, None], ok_seq, active)
@@ -355,8 +356,8 @@ class PagedEngine:
         valid_np = np.asarray(valid, np.int32)
         start_np = np.asarray(start, np.int32)
         pt_np = np.asarray(page_tables, np.int32)
-        with self.tracer.span("engine.chunk_prefill", cat="engine",
-                              args={"lanes": int(active_np.sum())}), \
+        with TRACER.span("engine.chunk_prefill", cat="engine",
+                         args={"lanes": int(active_np.sum())}), \
                 self.profiler.phase("prefill") as ph:
             tok, ok = self._chunk_prefill_impl(
                 self._tensor(tokens), self._tensor(start_np),
@@ -400,8 +401,8 @@ class PagedEngine:
             self.pool.mark_closed([page])
             self.pool.note_close(page, account, True)
             return True
-        with self.tracer.span("engine.close_page", cat="engine",
-                              args={"page": int(page), "account": account}), \
+        with TRACER.span("engine.close_page", cat="engine",
+                         args={"page": int(page), "account": account}), \
                 self.profiler.phase("close",
                                     tenant=self.pool.owner_of(page)) as ph:
             self.pool.spend_nonce(page)
@@ -435,8 +436,8 @@ class PagedEngine:
             self.pool.mark_open([page], fill)
             self.pool.note_reopen(page, True)
             return True
-        with self.tracer.span("engine.reopen_page", cat="engine",
-                              args={"page": int(page)}), \
+        with TRACER.span("engine.reopen_page", cat="engine",
+                         args={"page": int(page)}), \
                 self.profiler.phase("reopen",
                                     tenant=self.pool.owner_of(page)) as ph:
             self.pool.spend_nonce(page)
@@ -489,8 +490,8 @@ class PagedEngine:
         ok = True
         if was_open:
             ok = self.close_page(page, account="decode")
-        with self.tracer.span("engine.renonce_page", cat="engine",
-                              args={"page": int(page)}), \
+        with TRACER.span("engine.renonce_page", cat="engine",
+                         args={"page": int(page)}), \
                 self.profiler.phase("renonce",
                                     tenant=pool.owner_of(page)) as ph:
             ok2 = ph.dispatch(self._renonce_impl(int(page), int(fresh_nonce)))
@@ -536,8 +537,8 @@ class PagedEngine:
             pool.note_cow(src, dst, True)
             return True
         src_key = kv_pager._u32_words(src_key_words).to(pool.device)
-        with self.tracer.span("engine.cow_page", cat="engine",
-                              args={"src": int(src), "dst": int(dst)}), \
+        with TRACER.span("engine.cow_page", cat="engine",
+                         args={"src": int(src), "dst": int(dst)}), \
                 self.profiler.phase("cow", tenant=pool.owner_of(dst)) as ph:
             ok = ph.dispatch(self._cow_impl(int(src), int(dst), src_key,
                                             int(fill)))
@@ -561,25 +562,28 @@ class PagedEngine:
         dev = pool.device
         ar = torch.arange(B, device=dev)
 
-        params, okp = self._unseal_params()
-        kcache, vcache, ok_seq = self._gather_unseal(page_tables, seq_lens,
-                                                     active, okp)
+        with TRACER.span("engine.unseal_params", cat="engine", device=dev):
+            params, okp = self._unseal_params()
+        with TRACER.span("engine.gather_unseal", cat="engine", device=dev):
+            kcache, vcache, ok_seq = self._gather_unseal(
+                page_tables, seq_lens, active, okp)
         x = params["embed"][tokens[:, None]].to(cfg.act_dtype)   # [B, 1, D]
         positions = seq_lens[:, None]
         nk, nv = [], []
-        for l, lp in zip(range(Lc), transformer.layer_stack(params)):
-            def attend(q, kn, vn, l=l):
-                kc2, vc2 = kcache[l], vcache[l]     # updated in place
-                kc2[ar, seq_lens] = kn[:, 0]
-                vc2[ar, seq_lens] = vn[:, 0]
-                a = L.gqa_attention(q, kc2, vc2, causal=False,
-                                    t_valid=seq_lens + 1)
-                # open mode writes back just the new slot; legacy needs the
-                # full updated cache to re-seal the whole tail page
-                return a, ((kn, vn) if self.open_pages else (kc2, vc2))
-            x, (kk, vv) = self._block(lp, x, positions, attend)
-            nk.append(kk)
-            nv.append(vv)
+        with TRACER.span("engine.layers", cat="engine", device=dev):
+            for l, lp in zip(range(Lc), transformer.layer_stack(params)):
+                def attend(q, kn, vn, l=l):
+                    kc2, vc2 = kcache[l], vcache[l]     # updated in place
+                    kc2[ar, seq_lens] = kn[:, 0]
+                    vc2[ar, seq_lens] = vn[:, 0]
+                    a = L.gqa_attention(q, kc2, vc2, causal=False,
+                                        t_valid=seq_lens + 1)
+                    # open mode writes back just the new slot; legacy needs
+                    # the full updated cache to re-seal the whole tail page
+                    return a, ((kn, vn) if self.open_pages else (kc2, vc2))
+                x, (kk, vv) = self._block(lp, x, positions, attend)
+                nk.append(kk)
+                nv.append(vv)
         tok = self._emit(params, x, ok_seq, active)
 
         keys_w = pool.keys[write_pp]
@@ -631,8 +635,8 @@ class PagedEngine:
         active_np = np.asarray(active, bool)
         wp_np = np.asarray(write_pp, np.int32)
         n_act = int(active_np.sum())
-        with self.tracer.span("engine.decode_step", cat="engine",
-                              args={"lanes": n_act}), \
+        with TRACER.span("engine.decode_step", cat="engine",
+                         args={"lanes": n_act}), \
                 self.profiler.phase("decode") as ph:
             tok, ok = self._decode_impl(
                 self._tensor(tokens), self._tensor(seq_lens),

@@ -19,12 +19,14 @@ API: ``submit`` / ``step`` / ``collect`` (+ ``drain``), with throughput,
 latency, preemption and pool-occupancy metrics aggregated per gateway and
 per tenant.
 
-Observability (src/repro/obs/, docs/OBSERVABILITY.md): every gateway owns
+Observability (src/repro_torch/obs/; docs/OBSERVABILITY.md, and for the
+process tracer docs/OBSERVABILITY_torch.md): every gateway owns
 
   * one ``MetricsRegistry`` — all counters/gauges/histograms of the pool,
     scheduler and gateway; ``metrics()`` is a snapshot of it and
     ``metrics_text()`` the Prometheus exposition;
-  * one ``Tracer`` (``trace=True``) — request lifecycle + engine phase
+  * the process's tracer (``obs.trace.TRACER``; ``trace=True`` switches it
+    on until ``close()``) — request lifecycle, scheduler and engine phase
     spans, exported via ``export_trace`` (Perfetto-loadable);
   * one ``AuditLog`` — an HMAC-chained record of every trust event,
     keyed off the provider session; ``verify_audit()`` checks the chain.
@@ -32,12 +34,13 @@ Observability (src/repro/obs/, docs/OBSERVABILITY.md): every gateway owns
 from __future__ import annotations
 
 import time
+import weakref
 
 import numpy as np
 
 from ..core.policy import SecurityConfig
 from ..obs import (AuditLog, MetricsRegistry, Monitor, MonitorConfig,
-                   Profiler, Tracer, TID_ENGINE)
+                   Profiler, TID_ENGINE, TRACER)
 from ..obs import rules as obs_rules
 from ..store import SealedStore
 from .engine import PagedEngine
@@ -69,9 +72,12 @@ class SecureGateway:
         page_size; 0 = whole-prompt chunks, i.e. max_pages_per_seq pages).
         Smaller chunks cut TTFT under bursty admission.
 
-        trace: record request-lifecycle and engine-phase trace events
-        (export with ``export_trace``); off by default — a disabled tracer
-        short-circuits every emit.
+        trace: switch the process's tracer on, its buffer emptied, to
+        record request-lifecycle, scheduler and engine-phase trace events
+        (export with ``export_trace``) until ``close()`` or until the
+        gateway is collected; off by default, when it records only while a
+        torch profiler does.  A later ``trace=True`` gateway takes the
+        tracer over.
 
         monitor: evaluate the streaming SLO/posture Monitor at the end of
         every step and let it drive scheduler actions (tamper-storm
@@ -94,11 +100,17 @@ class SecureGateway:
         self.audit = AuditLog(provider.key_bytes)
         self.sessions.attach_audit(self.audit)
         self.store.audit = self.audit
-        self.tracer = Tracer(enabled=trace)
-        self.tracer.name_process("secure-gateway")
-        self.tracer.name_thread(TID_ENGINE, "engine")
+        # trace=True holds the process tracer until close() or collection
+        self._trace_owner = object()
+        self._trace_stop = None
+        if trace:
+            TRACER.start(self._trace_owner)
+            self._trace_stop = weakref.finalize(self, TRACER.stop,
+                                                self._trace_owner)
+        TRACER.name_process("secure-gateway")
+        TRACER.name_thread(TID_ENGINE, "engine")
         self.registry = MetricsRegistry()
-        self.profiler = Profiler(registry=self.registry, tracer=self.tracer,
+        self.profiler = Profiler(registry=self.registry,
                                  chunk_words=chunk_words)
         sealed = sec.enabled
         params_dev = provider.upload_tree(params) if sealed else params
@@ -111,8 +123,7 @@ class SecureGateway:
         self.engine = PagedEngine(
             cfg=cfg, params=params_dev, channel=provider, pool=self.pool,
             max_slots=max_slots, max_pages=max_pages_per_seq,
-            prefill_chunk=prefill_chunk, tracer=self.tracer,
-            profiler=self.profiler)
+            prefill_chunk=prefill_chunk, profiler=self.profiler)
         # the prefix-cache publisher gets its own attested session: shared
         # prefix pages seal under per-entry keys derived from THIS channel,
         # never under the provider's weight/launch channel or a tenant key
@@ -123,9 +134,10 @@ class SecureGateway:
         self.scheduler = Scheduler(self.engine, self.pool, self.sessions,
                                    max_slots, max_pages_per_seq,
                                    store=self.store, provider=provider,
-                                   tracer=self.tracer, audit=self.audit,
+                                   audit=self.audit,
                                    prefixes=self.prefixes)
-        self._t_start = time.monotonic()
+        # the window starts at its first step (set-up is not in it)
+        self._t_start: float | None = None
         self._c_steps = self.registry.counter(
             "gateway_steps_total", "scheduling steps this window")
         self._h_token_lat = self.registry.histogram(
@@ -152,8 +164,9 @@ class SecureGateway:
         One call on the shared registry resets every *windowed* metric the
         pool, scheduler and gateway registered — there is no per-object
         reset list to drift out of sync.  Lifetime metrics (allocator
-        totals, peak-live gauge) are exempt by construction."""
-        self._t_start = time.monotonic()
+        totals, peak-live gauge) are exempt by construction.  The window's
+        clock starts at the next ``step()``."""
+        self._t_start = None
         self.registry.reset()
         self.profiler.reset_window()
 
@@ -190,11 +203,13 @@ class SecureGateway:
     def step(self) -> dict:
         """Advance the engine one scheduling step (admit + decode + evict)."""
         t0 = time.monotonic()
+        if self._t_start is None:
+            self._t_start = t0
         provider = self.sessions.channel(PROVIDER)
         active = [r.rid for r in self.scheduler.active]
         step_no = int(self._c_steps.value)
         self.profiler.step_begin()
-        with self.tracer.span("serve_step", cat="serve",
+        with TRACER.span("serve_step", cat="serve",
                               args={"step": step_no, "active": len(active),
                                     "queued": len(self.scheduler.queue)}):
             events = provider.launch(
@@ -222,7 +237,7 @@ class SecureGateway:
         trusted-side headroom reports, then let fired alerts act."""
         lat = self._h_token_lat
         ttft = self.scheduler._h_ttft
-        elapsed = time.monotonic() - self._t_start
+        elapsed = self._elapsed()
         usable = max(1, self.pool.n_pages - 1)
         slo = {
             "ttft_p95_ms": ttft.percentile(0.95) if ttft.count else None,
@@ -307,12 +322,20 @@ class SecureGateway:
         raise RuntimeError("gateway did not drain")
 
     # -- metrics ---------------------------------------------------------
+    def _elapsed(self) -> float:
+        """Seconds since the window's first step (0 before it)."""
+        if self._t_start is None:
+            return 0.0
+        return time.monotonic() - self._t_start
+
     def metrics(self) -> dict:
         """Snapshot of the measurement window — same keys as ever, now
         computed from the registry (percentiles are nearest-rank; the old
-        ad-hoc ``int(p * len)`` indexing biased small windows low)."""
+        ad-hoc ``int(p * len)`` indexing biased small windows low).
+        ``elapsed_s`` and ``tok_per_s`` count from the window's first
+        ``step()``."""
         lat = self._h_token_lat
-        elapsed = time.monotonic() - self._t_start
+        elapsed = self._elapsed()
         n_tok = lat.count
         rotations = sum(s.rotations for s in
                         (self.sessions.get(t) for t in self.sessions.tenants))
@@ -391,13 +414,20 @@ class SecureGateway:
 
     # -- trace + audit export --------------------------------------------
     def export_trace(self, path: str, fmt: str = "chrome") -> int:
-        """Write the trace buffer: ``chrome`` (Perfetto-loadable JSON
-        object) or ``jsonl`` (one event per line).  -> event count"""
+        """Write the process tracer's buffer: ``chrome`` (Perfetto-loadable
+        JSON object) or ``jsonl`` (one event per line).  -> event count"""
         if fmt == "chrome":
-            return self.tracer.to_chrome_trace(path)
+            return TRACER.to_chrome_trace(path)
         if fmt == "jsonl":
-            return self.tracer.to_jsonl(path)
+            return TRACER.to_jsonl(path)
         raise ValueError(f"unknown trace format {fmt!r}")
+
+    def close(self) -> None:
+        """Switch the process tracer off again if this gateway switched it
+        on (``trace=True``) and still holds it; its buffer stays for
+        export."""
+        if self._trace_stop is not None:
+            self._trace_stop()
 
     def export_audit(self, path: str, key_path: str | None = None) -> int:
         """Write the audit log as JSONL (+ signed trailer); optionally also

@@ -373,12 +373,6 @@ class PagedKVPool:
         self._c_page_renonces = reg.counter(
             "kv_pool_page_renonces_total",
             "pages re-sealed under a fresh nonce lane")
-        self._c_shared_maps = reg.counter(
-            "kv_pool_shared_maps_total",
-            "shared-page mappings handed to requests", windowed=False)
-        self._c_shared_unmaps = reg.counter(
-            "kv_pool_shared_unmaps_total",
-            "shared-page mappings returned", windowed=False)
         self._c_cow_breaks = reg.counter(
             "kv_pool_cow_breaks_total",
             "shared pages copied-on-write into private pages",
@@ -514,7 +508,6 @@ class PagedKVPool:
             if p not in self._refs:
                 raise ValueError(f"page {p} is not a shared page")
             self._refs[p] += 1
-        self._c_shared_maps.inc(len(pages))
 
     def unmap_shared(self, pages: list[int]) -> None:
         """Drop one mapping per page; retire pages whose publisher already
@@ -527,7 +520,6 @@ class PagedKVPool:
             self._refs[p] -= 1
             if self._refs[p] == 0 and p in self._pending_release:
                 retire.append(p)
-        self._c_shared_unmaps.inc(len(pages))
         if retire:
             self._retire_shared(retire)
 

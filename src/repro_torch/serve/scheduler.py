@@ -43,7 +43,8 @@ from collections import deque
 import numpy as np
 
 from ..core import channel as channel_lib
-from ..obs import StatsView, Tracer, request_tid
+from ..obs import StatsView, request_tid
+from ..obs.trace import TRACER
 from ..store import SealedStore, StoreError, choose_victim
 from .engine import TOKEN_POISON, PagedEngine
 from .kv_pager import SCRATCH_PAGE, PagedKVPool
@@ -114,7 +115,7 @@ class Scheduler:
     def __init__(self, engine: PagedEngine, pool: PagedKVPool,
                  sessions: SessionManager, max_slots: int, max_pages: int,
                  store: SealedStore | None = None, provider=None,
-                 tracer: Tracer | None = None, audit=None, prefixes=None):
+                 audit=None, prefixes=None):
         self.engine = engine
         self.pool = pool
         self.sessions = sessions
@@ -128,10 +129,10 @@ class Scheduler:
         self.slots: list[Request | None] = [None] * max_slots
         self.requests: dict[int, Request] = {}
         self._next_rid = 1
-        if tracer is None:
-            tracer = (engine.tracer if engine is not None
-                      else Tracer(enabled=False))
-        self.tracer = tracer
+        # its own request lanes and span keys in the process tracer, so
+        # that two gateways recording at once keep their requests apart
+        self._lane_base = TRACER.lane_base()
+        self._span_key = object()
         self.audit = audit          # obs.AuditLog (attached by the gateway)
         # scheduler counters live in the pool's registry so the gateway
         # snapshots one registry; dict-style views keep the historical
@@ -215,14 +216,15 @@ class Scheduler:
         self._next_rid += 1
         self.requests[req.rid] = req
         self.queue.append(req)
-        tid = request_tid(req.rid)
-        self.tracer.name_thread(tid, f"req {req.rid} ({tenant_id})")
-        self.tracer.instant("submit", cat="request", tid=tid,
-                            args={"rid": req.rid, "tenant": tenant_id,
-                                  "prompt_len": req.prompt_len,
-                                  "max_new": max_new,
-                                  "priority": priority})
-        self.tracer.begin(("req", req.rid), "queued", cat="request", tid=tid)
+        tid = request_tid(req.rid, self._lane_base)
+        TRACER.name_thread(tid, f"req {req.rid} ({tenant_id})")
+        TRACER.instant("submit", cat="request", tid=tid,
+                       args={"rid": req.rid, "tenant": tenant_id,
+                             "prompt_len": req.prompt_len,
+                             "max_new": max_new,
+                             "priority": priority})
+        TRACER.begin((self._span_key, req.rid), "queued", cat="request",
+                     tid=tid)
         return req.rid
 
     @property
@@ -316,11 +318,11 @@ class Scheduler:
     def step(self) -> dict:
         events = {"admitted": [], "emitted": [], "finished": [],
                   "poisoned": [], "preempted": [], "resumed": []}
-        with self.tracer.span("sched.admit", cat="sched"):
+        with TRACER.span("sched.admit", cat="sched"):
             self._admit(events)
-        with self.tracer.span("sched.prefill", cat="sched"):
+        with TRACER.span("sched.prefill", cat="sched"):
             self._prefill_step(events)
-        with self.tracer.span("sched.decode", cat="sched"):
+        with TRACER.span("sched.decode", cat="sched"):
             self._decode(events)
         return events
 
@@ -395,9 +397,9 @@ class Scheduler:
             req.pages = priv
             req.status = "prefilling"
             req.prefill_pos = 0
-            self.tracer.begin(("req", req.rid), "prefill", cat="request",
-                              tid=request_tid(req.rid),
-                              args={"pages": n_pages, "slot": slot})
+            TRACER.begin((self._span_key, req.rid), "prefill", cat="request",
+                         tid=request_tid(req.rid, self._lane_base),
+                         args={"pages": n_pages, "slot": slot})
             return
         # -- prefix-cache hit: map the shared full pages read-only -------
         shared = list(entry.pages[:entry.n_full])
@@ -436,10 +438,10 @@ class Scheduler:
             req.prefill_pos = req.prompt_len
             req.status = "running"
             req.t_first = time.monotonic()
-            self.tracer.begin(("req", req.rid), "decode", cat="request",
-                              tid=request_tid(req.rid),
-                              args={"pages": n_pages, "slot": slot,
-                                    "prefix": entry.prefix_id})
+            TRACER.begin((self._span_key, req.rid), "decode", cat="request",
+                         tid=request_tid(req.rid, self._lane_base),
+                         args={"pages": n_pages, "slot": slot,
+                               "prefix": entry.prefix_id})
             good = ok and entry.first_ok
             self._record_token(req, entry.first_token if good
                                else TOKEN_POISON, events, ok=good)
@@ -449,11 +451,11 @@ class Scheduler:
             # recomputed KV is bitwise-identical for identical tokens)
             req.prefill_pos = entry.n_full * ps
             req.status = "prefilling"
-            self.tracer.begin(("req", req.rid), "prefill", cat="request",
-                              tid=request_tid(req.rid),
-                              args={"pages": n_pages, "slot": slot,
-                                    "prefix": entry.prefix_id,
-                                    "skip_tokens": req.prefill_pos})
+            TRACER.begin((self._span_key, req.rid), "prefill", cat="request",
+                         tid=request_tid(req.rid, self._lane_base),
+                         args={"pages": n_pages, "slot": slot,
+                               "prefix": entry.prefix_id,
+                               "skip_tokens": req.prefill_pos})
 
     # -- chunked batched prefill ----------------------------------------
     def _prefill_step(self, events: dict) -> None:
@@ -516,8 +518,8 @@ class Scheduler:
             elif r.prefill_pos >= r.prompt_len:
                 r.status = "running"
                 r.t_first = now
-                self.tracer.begin(("req", r.rid), "decode", cat="request",
-                                  tid=request_tid(r.rid))
+                TRACER.begin((self._span_key, r.rid), "decode", cat="request",
+                             tid=request_tid(r.rid, self._lane_base))
                 self._record_token(r, int(tok[b]), events)
 
     def _swap_out(self, victim: Request, events: dict) -> None:
@@ -548,9 +550,9 @@ class Scheduler:
         # not owned, so only the private suffix spills — the read-only
         # mapping (and its refcount) rides out the swap untouched
         pages = list(victim.pages[victim.n_shared:])
-        self.tracer.instant("swap_out", cat="request",
-                            tid=request_tid(victim.rid),
-                            args={"rid": victim.rid, "pages": len(pages)})
+        TRACER.instant("swap_out", cat="request",
+                       tid=request_tid(victim.rid, self._lane_base),
+                       args={"rid": victim.rid, "pages": len(pages)})
         # wall-only phase: the ciphertext export + store put are host copies
         # (0 dispatches, 0 fresh sealed bytes — the tail close above charged
         # its bytes to the "close" phase under the swap bucket already)
@@ -584,8 +586,8 @@ class Scheduler:
         victim.status = "swapped"
         self.queue.append(victim)
         events["preempted"].append(victim.rid)
-        self.tracer.begin(("req", victim.rid), "swapped", cat="request",
-                          tid=request_tid(victim.rid))
+        TRACER.begin((self._span_key, victim.rid), "swapped", cat="request",
+                     tid=request_tid(victim.rid, self._lane_base))
 
     def _swap_in(self, req: Request, slot: int, events: dict) -> None:
         """Bring a swapped request back: fresh physical pages, store bytes
@@ -626,10 +628,10 @@ class Scheduler:
         req.status = "prefilling" if req.resume_prefill else "running"
         req.t_last = time.monotonic()
         self.slots[slot] = req
-        self.tracer.begin(
-            ("req", req.rid),
+        TRACER.begin(
+            (self._span_key, req.rid),
             "prefill" if req.resume_prefill else "decode",
-            cat="request", tid=request_tid(req.rid),
+            cat="request", tid=request_tid(req.rid, self._lane_base),
             args={"resumed": True, "swaps_in": req.swaps_in})
         if self.engine.open_pages:
             # restore the open-page discipline: the partial tail page
@@ -749,19 +751,19 @@ class Scheduler:
             self._h_ttft.observe(ttft_ms)
             if req.swaps_out > 0:
                 self._h_pre_ttft.observe(ttft_ms)
-        tid = request_tid(req.rid)
-        self.tracer.end(("req", req.rid),
-                        args={"tokens": len(req.tokens_out)})
+        tid = request_tid(req.rid, self._lane_base)
+        TRACER.end((self._span_key, req.rid),
+                   args={"tokens": len(req.tokens_out)})
         if req.status == "poisoned":
-            self.tracer.instant("poison", cat="request", tid=tid,
-                                args={"rid": req.rid})
+            TRACER.instant("poison", cat="request", tid=tid,
+                           args={"rid": req.rid})
             self._audit("tamper", req.tenant_id, rid=req.rid,
                         tokens_emitted=len(req.tokens_out),
                         swaps_out=req.swaps_out, swaps_in=req.swaps_in)
         elif req.status == "quarantined":
-            self.tracer.instant("quarantine_drop", cat="request", tid=tid,
-                                args={"rid": req.rid})
+            TRACER.instant("quarantine_drop", cat="request", tid=tid,
+                           args={"rid": req.rid})
         else:
-            self.tracer.instant("finish", cat="request", tid=tid,
-                                args={"rid": req.rid,
-                                      "tokens": len(req.tokens_out)})
+            TRACER.instant("finish", cat="request", tid=tid,
+                           args={"rid": req.rid,
+                                 "tokens": len(req.tokens_out)})

@@ -62,6 +62,7 @@ from ..core.policy import Protection, SecurityConfig
 from ..kernels.ctr_cipher import ops as ctr_ops
 from ..kernels import common
 from ..models.config import DTYPES
+from ..obs.trace import TRACER
 from ..optim import AdamW, TrainState
 
 # elements per row slice of the leaf-by-leaf update: 64 MiB of f32, so the
@@ -309,12 +310,13 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
         return model.loss(params, cfg, mb)
 
     def train_step(state: TrainState, batch_stack):
+        dev = state.step.device
         if sealed_mode:
-            params, ok = sealed_lib.unseal_tree(state.params, key)
+            with TRACER.span("train.unseal", cat="train", device=dev):
+                params, ok = sealed_lib.unseal_tree(state.params, key)
         else:
             params = state.params
-            ok = torch.ones((), dtype=torch.bool,
-                            device=state.step.device)
+            ok = torch.ones((), dtype=torch.bool, device=dev)
         sharded = any(isinstance(p, DTensor)
                       for p in sealed_lib.tree_leaves(params))
         if sharded:
@@ -334,8 +336,10 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
         l_sum = torch.zeros((), dtype=torch.float32, device=ok.device)
         mbs = _microbatches(batch_stack)
         for mb in mbs:
-            l = loss_fn(ptree, mb)
-            l.backward()
+            with TRACER.span("train.forward", cat="train", device=dev):
+                l = loss_fn(ptree, mb)
+            with TRACER.span("train.backward", cat="train", device=dev):
+                l.backward()
             l_sum = l_sum + l.detach()
         for h in hooks:                  # the hooks hold the accumulators
             h.remove()
@@ -372,29 +376,31 @@ def make_train_step(model, cfg, opt: AdamW, sec: SecurityConfig, key=None,
             metrics.update(loss=loss, seal_ok=ok)
             return new_state, metrics
 
-        mus = sealed_lib.tree_leaves(state.mu)
-        nus = sealed_lib.tree_leaves(state.nu)
-        # every tag of the moments checks out before anything is written
-        ok = torch.stack([ok] + [sealed_lib.verify(st, key)
-                                 for st in mus + nus]).all()
-        step0 = state.step
-        if isinstance(step0, DTensor):
-            step0 = step0.to_local()
-        if sharded:                      # the AND over the ranks
-            ok = sealed_lib.all_ranks_ok(ok)
-        step, lr, c1, c2 = opt.scalars(step0)
-        scale, gnorm = opt.clip(grads)
-        new = [[], [], []]
-        sps = sealed_lib.tree_leaves(state.params)
-        for i, (sp, sm, sv) in enumerate(zip(sps, mus, nus)):
-            p, g = (sealed_lib.take_block(x, sp.ct)
-                    for x in (leaves[i], grads[i]))
-            leaves[i] = grads[i] = None
-            for acc_tree, st in zip(new, _reseal_update(
-                    opt, key, ok, lr, c1, c2, scale, p, g, sp, sm, sv,
-                    in_place)):
-                acc_tree.append(st)
-            p = g = None
+        # the moments' verification, AdamW and the reseal, leaf by leaf
+        with TRACER.span("train.update", cat="train", device=dev):
+            mus = sealed_lib.tree_leaves(state.mu)
+            nus = sealed_lib.tree_leaves(state.nu)
+            # every tag of the moments checks out before anything is written
+            ok = torch.stack([ok] + [sealed_lib.verify(st, key)
+                                     for st in mus + nus]).all()
+            step0 = state.step
+            if isinstance(step0, DTensor):
+                step0 = step0.to_local()
+            if sharded:                      # the AND over the ranks
+                ok = sealed_lib.all_ranks_ok(ok)
+            step, lr, c1, c2 = opt.scalars(step0)
+            scale, gnorm = opt.clip(grads)
+            new = [[], [], []]
+            sps = sealed_lib.tree_leaves(state.params)
+            for i, (sp, sm, sv) in enumerate(zip(sps, mus, nus)):
+                p, g = (sealed_lib.take_block(x, sp.ct)
+                        for x in (leaves[i], grads[i]))
+                leaves[i] = grads[i] = None
+                for acc_tree, st in zip(new, _reseal_update(
+                        opt, key, ok, lr, c1, c2, scale, p, g, sp, sm, sv,
+                        in_place)):
+                    acc_tree.append(st)
+                p = g = None
         if isinstance(state.step, DTensor):
             step = sealed_lib.wrap(step, state.step.device_mesh,
                                    state.step.placements, ())
