@@ -605,6 +605,7 @@ def _tree_paths(tree, prefix=""):
 def serve(cfg, sealed, provider, tenants, profiler):
     """The main path: four requests through the sealed paged engine."""
     from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.tree_mac import ops as mac_ops
     from repro_torch.serve.runner import Runner, Request
     from repro_torch.serve.engine import PagedEngine
@@ -633,12 +634,14 @@ def serve(cfg, sealed, provider, tenants, profiler):
         for kind, fn in (("prefill", runner.prefill_step),
                          ("decode", runner.decode_step)):
             c0, m0 = ctr_ops.ctr_xor.launches, mac_ops.mac_tags.launches
+            f0 = fa_ops.flash_forward.launches
             closes0 = pool.stats["page_closes"]
             ev = {"emitted": [], "finished": [], "poisoned": []}
             if fn(ev):
                 steps.append(dict(
                     kind=kind, ctr=ctr_ops.ctr_xor.launches - c0,
                     mac=mac_ops.mac_tags.launches - m0,
+                    flash=fa_ops.flash_forward.launches - f0,
                     closes=pool.stats["page_closes"] - closes0,
                     poisoned=ev["poisoned"]))
     torch.cuda.synchronize()
@@ -1232,6 +1235,7 @@ def train_phase(cfg):
     from repro_torch.core.channel import SecureChannel
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.tree_mac import ops as mac_ops
     from repro_torch.models import transformer
     from repro_torch.models.config import TRAIN_4K
@@ -1267,6 +1271,7 @@ def train_phase(cfg):
     for i in range(TRAIN_STEPS):
         b = batch(i)
         c0, m0 = ctr_ops.ctr_xor.launches, mac_ops.mac_tags.launches
+        f0, b0 = fa_ops.flash_forward.launches, fa_ops.flash_backward.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, b)
@@ -1276,7 +1281,10 @@ def train_phase(cfg):
                           grad_norm=float(m["grad_norm"]),
                           seal_ok=bool(m["seal_ok"]),
                           ctr=ctr_ops.ctr_xor.launches - c0,
-                          mac=mac_ops.mac_tags.launches - m0))
+                          mac=mac_ops.mac_tags.launches - m0,
+                          flash_forward=fa_ops.flash_forward.launches - f0,
+                          flash_backward=(fa_ops.flash_backward.launches
+                                          - b0)))
         s_ = steps[-1]
         check(np.isfinite(s_["loss"]) and s_["seal_ok"],
               f"train step {i}: {s_}")
@@ -1891,6 +1899,186 @@ def print_scan_checks(cases: list, card: str) -> None:
                   f"{', 100 strong' if c['name'].startswith('wkv6') else ''}"
                   f": max abs err {c['zero_decay_err']:.3g}; {card}",
                   flush=True)
+
+
+# the fused causal attention's shapes: granite-3-2b's training layer (B 1,
+# S 4096, 32 query and 8 KV heads of 64) and its serving prefill chunk (the
+# engine's 32 lanes, S 512 over T 2048 + 512 cached rows; lanes resume at
+# 0, 512, 1024 and 1536 in turn, as 1-4-chunk prompts do)
+FLASH_SHAPES = {"train": (1, 4096, 4096, 8, 4, 64),
+                "prefill": (32, 512, 2560, 8, 4, 64)}
+FLASH_PREFILL_BASES = (0, 512, 1024, 1536)
+
+
+def flash_pairs(B: int, S: int, T: int, bases) -> int:
+    """Visible (query, key) pairs of one head summed over the lanes."""
+    return sum(min(T, b + s + 1) for b in bases[:B] for s in range(S))
+
+
+def flash_bound(B, S, T, K, G, hd, bases, backward: bool) -> dict:
+    """Least time of the causal attention's own products at the bf16
+    tensor-core rate: 4 hd FLOPs a visible pair forward (q k^T, P v), 8 hd
+    backward (dP, dV, dK, dQ); the recompute of S and the split's second
+    products are the kernels' extra work and not counted."""
+    flops = (8 if backward else 4) * hd * K * G * flash_pairs(B, S, T, bases)
+    return {"flops": flops, "bound_ms": flops / BF16_FLOPS_PER_S * 1e3}
+
+
+def flash_checks() -> list:
+    """The fused attention kernels against their plain version (ref.py) at
+    FLASH_SHAPES, inputs from SEED: forward and backward within the limits
+    of tests/test_torch_flash_attention.py, two runs equal bit for bit;
+    timed with CUDA events beside their bound, the plain version, the
+    float32 chain gqa_attention ran before (``_attend_block`` over blocks of
+    512 queries, TF32 on its bf16 logits, autograd for its backward) and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls);
+    each kernel's share from the profiler; peak memory over a forward and
+    backward against the chain's."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import layers
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    out = []
+    for kind, (B, S, T, K, G, hd) in FLASH_SHAPES.items():
+        H = K * G
+        bases = ([FLASH_PREFILL_BASES[b % 4] for b in range(B)]
+                 if kind == "prefill" else [0] * B)
+
+        def n(*shape):
+            return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+        q, k, v, dout = n(B, S, H, hd), n(B, T, K, hd), n(B, T, K, hd), \
+            n(B, S, H, hd)
+        base = (torch.tensor(bases, dtype=torch.int32, device="cuda")
+                if kind == "prefill" else None)
+        bp = base if base is not None else 0
+        o, o32, lse = fa_ops.flash_forward(q, k, v, base)
+        ro, r32, rl = fa_ref.forward(q, k, v, base)
+        vmax = v.float().abs().max().item()
+        f_err = (o32 - r32).abs().max().item()
+        o_ok = bool(((o.float() - r32).abs()
+                     <= 2 ** -8 * r32.abs() + 2 ** -16 * vmax).all())
+        check(f_err <= 2 ** -16 * vmax and o_ok,
+              f"flash forward ({kind}) disagrees with its plain version: "
+              f"float32 output off by {f_err}, bf16 within limits {o_ok}")
+        lse_err = (lse - rl).abs().max().item()
+        check(lse_err <= 1e-5 * rl.abs().max().item(),
+              f"flash log-sum-exp ({kind}) off by {lse_err}")
+        got = fa_ops.flash_backward(q, k, v, base, o32, lse, dout)
+        want = fa_ref.backward(q, k, v, base, r32, rl, dout)
+        b_err = max(((x.float() - w).abs()
+                     - 2 ** -8 * w.abs()).max().item()
+                    / w.abs().max().item() for x, w in zip(got, want))
+        check(b_err <= 2 ** -14, f"flash backward ({kind}) disagrees with "
+                                 f"its plain version: {b_err}")
+        del ro, r32, rl, want
+        o2 = fa_ops.flash_forward(q, k, v, base)
+        got2 = fa_ops.flash_backward(q, k, v, base, o32, lse, dout)
+        same = (all(torch.equal(x, y) for x, y in zip((o, o32, lse), o2))
+                and all(torch.equal(x, y) for x, y in zip(got, got2)))
+        check(same, f"flash kernels ({kind}) differ between two runs")
+        del o2, got, got2
+        torch.cuda.empty_cache()
+
+        def chain_fwd():
+            with torch.no_grad():
+                return layers.gqa_attention(q.float(), k.float(), v.float(),
+                                            causal=True, base_pos=bp)
+
+        def sdpa():
+            qh = q.transpose(1, 2)
+            kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
+            vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
+            if base is None:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True)
+            pos = base[:, None] + torch.arange(S, device="cuda")
+            mask = torch.arange(T, device="cuda") <= pos[..., None]
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask[:, None])
+
+        fwd_ms = device_ms(lambda: fa_ops.flash_forward(q, k, v, base))
+        fwd_kernels = scan_kernel_ms(lambda: fa_ops.flash_forward(q, k, v,
+                                                                  base),
+                                     "flash_attn")
+        row = {"name": "flash_forward", "shape": kind,
+               "dims": [B, S, T, K, G, hd], "max_abs_err": f_err,
+               "ms": fwd_ms, "kernel_ms": fwd_kernels,
+               "plain_ms": device_ms(lambda: fa_ref.forward(q, k, v, base),
+                                     reps=2),
+               "chain_ms": device_ms(chain_fwd, reps=3),
+               "library_ms": device_ms(sdpa, reps=5), "repeat_bitwise": same,
+               **flash_bound(B, S, T, K, G, hd, bases, False)}
+        out.append(row)
+        if kind == "train":
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+
+            def chain_step():
+                x = layers.gqa_attention(qq.float(), kk.float(), vv.float(),
+                                         causal=True)
+                x.backward(dout.float())
+
+            def fused_step():
+                fa_ops.flash_attention(qq, kk, vv).backward(dout)
+
+            def peak(step):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                step()
+                torch.cuda.synchronize()
+                return torch.cuda.max_memory_allocated() - before
+
+            bwd_ms = device_ms(lambda: fa_ops.flash_backward(
+                q, k, v, base, o32, lse, dout))
+            bwd_kernels = scan_kernel_ms(lambda: fa_ops.flash_backward(
+                q, k, v, base, o32, lse, dout), "flash_attn")
+            out.append({
+                "name": "flash_backward", "shape": kind,
+                "dims": [B, S, T, K, G, hd], "max_abs_err": b_err,
+                "ms": bwd_ms, "kernel_ms": bwd_kernels,
+                "plain_ms": device_ms(lambda: fa_ref.backward(
+                    q, k, v, base, o32, lse, dout), reps=2),
+                "chain_ms": device_ms(chain_step, reps=3)
+                - row["chain_ms"],
+                "library_ms": device_ms(
+                    lambda: sdpa_backward(sdpa, q, k, v, dout), reps=5)
+                - row["library_ms"],
+                "repeat_bitwise": same,
+                "peak_bytes": {"fused": peak(fused_step),
+                               "chain": peak(chain_step)},
+                **flash_bound(B, S, T, K, G, hd, bases, True)})
+        del q, k, v, dout, o, o32, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_backward(sdpa, q, k, v, dout):
+    """``sdpa``'s forward and backward over leaves made from q, k, v."""
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    try:
+        sdpa().backward(dout.transpose(1, 2))
+    finally:
+        for t in (q, k, v):
+            t.requires_grad_(False)
+            t.grad = None
+
+
+def print_flash_checks(rows: list, card: str) -> None:
+    for c in rows:
+        extra = (f"; peak bytes of a forward and backward: fused "
+                 f"{c['peak_bytes']['fused']}, float32 chain "
+                 f"{c['peak_bytes']['chain']}" if "peak_bytes" in c else "")
+        print(f"check {c['name']} {c['shape']} {c['dims']}: max err "
+              f"{c['max_abs_err']:.3g}; kernel {c['ms']:.4f} ms (CUDA "
+              f"events), by kernel {json.dumps(c['kernel_ms'])}; bound "
+              f"{c['bound_ms']:.4f} ms ({c['flops']} FLOPs at the bf16 "
+              f"rate, {c['bound_ms'] / c['ms']:.1%}); plain "
+              f"{c['plain_ms']:.2f} ms; float32 chain {c['chain_ms']:.2f} "
+              f"ms; sdpa {c['library_ms']:.4f} ms; two runs bit for bit "
+              f"{c['repeat_bitwise']}{extra}; {card}", flush=True)
 
 
 def ctr_payload_bound(shape, dtype) -> dict:
@@ -2648,6 +2836,7 @@ def print_sharded_serve(par: dict, card: str) -> None:
 
 def _counted():
     from repro_torch.kernels.ctr_cipher import ops as ctr_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.sealed_attention import ops as sa_ops
     from repro_torch.kernels.sealed_matmul import ops as smm_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -2659,7 +2848,9 @@ def _counted():
             "wkv6_forward": wkv_ops.wkv6_forward,
             "wkv6_backward": wkv_ops.wkv6_backward,
             "ssd_forward": ssd_ops.ssd_forward,
-            "ssd_backward": ssd_ops.ssd_backward}
+            "ssd_backward": ssd_ops.ssd_backward,
+            "flash_forward": fa_ops.flash_forward,
+            "flash_backward": fa_ops.flash_backward}
 
 
 def zero_launches() -> None:
@@ -4112,6 +4303,8 @@ def main() -> int:
     scans = scan_checks()
     print_scan_checks(scans, card)
     new_work = {"scan checks": time.perf_counter() - t_scan}
+    flash = flash_checks()
+    print_flash_checks(flash, card)
 
     # 4. serve ------------------------------------------------------------
     profiler = Profiler(chunk_words=CHUNK_WORDS)
@@ -4139,6 +4332,12 @@ def main() -> int:
               for p, c in profiler.ledger.phase_totals().items()}
     per_decode = sorted({(s["ctr"], s["mac"]) for s in steps
                          if s["kind"] == "decode" and s["closes"] == 0})
+    # the fused attention's forward calls a prefill call and a decode step
+    flash_per = {kind: sorted({s["flash"] for s in steps
+                               if s["kind"] == kind})
+                 for kind in ("prefill", "decode")}
+    check(flash_per["decode"] == [0] and max(flash_per["prefill"]) > 0,
+          f"fused attention calls a prefill and a decode step: {flash_per}")
     print(f"serve: {len(reqs)} requests, {n_tokens} tokens in {wall:.3f} s = "
           f"{n_tokens / wall:.2f} tok/s; {len(steps)} engine steps; phases "
           f"{json.dumps(phases)}; peak memory "
@@ -4224,7 +4423,11 @@ def main() -> int:
               f"{st['grad_norm']:.4f}, seal_ok {st['seal_ok']}, "
               f"{st['wall_s']:.3f} s = "
               f"{tr['tokens_per_step'] / st['wall_s']:.0f} tok/s, launches "
-              f"ctr {st['ctr']} mac {st['mac']}", flush=True)
+              f"ctr {st['ctr']} mac {st['mac']} flash_forward "
+              f"{st['flash_forward']} flash_backward {st['flash_backward']}",
+              flush=True)
+        check(st["flash_forward"] > 0 and st["flash_backward"] > 0,
+              f"train step {i} did not run the fused attention: {st}")
     print(f"train: {TRAIN_STEPS} steps of {tr['tokens_per_step']} tokens, "
           f"sealed state {tr['sealed_bytes']} bytes, peak memory "
           f"{tr['peak_bytes'] / 2**30:.2f} GiB; launches "
@@ -4438,6 +4641,43 @@ def main() -> int:
                                       "library_ms", "bound_ms", "bound_by",
                                       "keystream_ops", "cluster")}
                    for c in mm["mlp"]]})
+    # the fused causal attention, forward and backward: granite's training
+    # layer and its serving prefill chunk at FLASH_SHAPES; launches of the
+    # paths below, a train step's and a serving call's
+    for name in ("flash_forward", "flash_backward"):
+        rows = [c for c in flash if c["name"] == name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/models/layers.py:76-97 (a jnp chain; no "
+                        "Pallas kernel)",
+            "launches_per_train_step": sorted({st[name]
+                                               for st in tr["steps"]}),
+            **({"launches_per_prefill_call": flash_per["prefill"],
+                "launches_per_decode_step": flash_per["decode"]}
+               if name == "flash_forward" else {}),
+            "max_abs_err": max(c["max_abs_err"] for c in rows),
+            "tolerance": ("float32 output 2^-16 max|v|, bf16 output 2^-8 "
+                          "relative" if name == "flash_forward" else
+                          "2^-8 relative + 2^-14 of each gradient's largest "
+                          "entry"),
+            "repeat_bitwise": all(c["repeat_bitwise"] for c in rows),
+            **{k: rows[0][k] for k in ("ms", "kernel_ms", "plain_ms",
+                                       "chain_ms", "library_ms", "flops",
+                                       "bound_ms")},
+            "bound_by": "operations",
+            "library_call": "F.scaled_dot_product_attention (a yardstick; "
+                            "the port never calls it)",
+            **({"peak_bytes": rows[0]["peak_bytes"]}
+               if "peak_bytes" in rows[0] else {}),
+            "workload": f"one layer's call at {rows[0]['shape']} "
+                        f"{rows[0]['dims']} (B, S, T, K, G, hd); ms in CUDA "
+                        "events; the bound counts the causal FLOPs at the "
+                        "bf16 rate",
+            "shapes": [{k: c[k] for k in ("shape", "dims", "ms", "kernel_ms",
+                                          "plain_ms", "chain_ms",
+                                          "library_ms", "bound_ms")}
+                       for c in rows]})
     by_path = {"paged": launches, "fixed_unfused": plain_run["launches"],
                "fixed_fused": fused_run["launches"],
                "gateway": gw["launches"],
@@ -4470,6 +4710,8 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in by_path.items()}
+        if k["name"].startswith("flash_"):
+            k["launches"] = sum(k["launches_by_path"].values())
     # per configuration of the families phase: one sealed decode step's
     # weight unseal (CUDA graphs, every leaf once) and its launches
     for k in kernels[:2]:

@@ -14,7 +14,9 @@ card would make.
 
 ``wkv6_scan`` and ``ssd_scan`` (RWKV-6's and Mamba-2's recurrences, forward
 and backward) replace no Pallas kernel: the reference runs them as a
-device-side ``jax.lax.scan``.  Their wrappers are ``torch.library`` custom
-ops with autograd, a meta path and a FLOP formula, so the dry run counts
-them whole.
+device-side ``jax.lax.scan``.  Nor does ``flash_attention`` (causal
+grouped-query attention for training and the prefill chunk, forward and
+backward): the reference runs a plain ``jnp`` chain.  Their wrappers are
+``torch.library`` custom ops with autograd, a meta path and a FLOP
+formula, so the dry run counts them whole.
 """

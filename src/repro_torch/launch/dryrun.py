@@ -25,8 +25,10 @@ reference's compile does.  Each row records, for one rank:
   ``memory_analysis``;
 * ``flops``: the FLOPs of the matmuls, the attention and RWKV-6's and
   Mamba-2's scans (``Tally``, by ``torch.utils.flop_counter``'s formulas
-  and the formulas the scan ops register, ``kernels/*_scan/ops.py``), the
-  scans over every token;
+  and the formulas the scan ops and the fused attention's ops register,
+  ``kernels/*_scan/ops.py``, ``kernels/flash_attention/ops.py``), the
+  scans over every token, bf16 causal attention over the (query, key)
+  pairs its mask keeps, as the card's kernels run it;
 * ``collectives``: ``{op: {count, bytes}}`` of the collectives the port
   calls (bytes of each call's output), under the reference's HLO names,
   and ``collective_link_bytes`` by the reference's ring formula;
@@ -78,7 +80,8 @@ from . import steps
 from .mesh import make_production_mesh
 
 DEFAULT_OUT = "results/dryrun_torch.jsonl"
-FLOPS_COUNTED = "matmul, attention and the RWKV-6 / Mamba-2 scans"
+FLOPS_COUNTED = ("matmul, attention (the fused causal kernels over the pairs "
+                 "they keep) and the RWKV-6 / Mamba-2 scans")
 
 # torch.distributed's collectives the port calls -> the reference's HLO names
 _HLO_NAMES = {"all_gather_into_tensor": "all-gather",

@@ -3,9 +3,11 @@ the cross-entropy loss.
 
 Torch port of the dense subset of ``repro.models.layers``, with the
 reference's layouts ([B, S, H, hd] queries, [B, T, K, hd] caches).  Scores,
-softmax and norms are computed in float32 as in the reference.  Parameter
-initializers take an explicit ``torch.Generator`` and device, and a
-``lead`` shape for stacked [n_layers, ...] leaves.
+softmax and norms are computed in float32 as in the reference; bf16 causal
+attention on the card runs the fused kernels of ``kernels/flash_attention``
+(float32 scores and softmax in registers).  Parameter initializers take an
+explicit ``torch.Generator`` and device, and a ``lead`` shape for stacked
+[n_layers, ...] leaves.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import contextlib
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..kernels.flash_attention import ops as flash_ops
 
 # ---------------------------------------------------------------------------
 # init
@@ -130,7 +134,15 @@ def gqa_attention(q, k, v, *, causal: bool = True, q_block: int = 512,
     at its own position (chunked prefill over a shared cache).
     t_valid: optional number of valid cache positions — an int, or a [B]
     tensor when sequences in the batch have different lengths.
+
+    A causal call with no ``t_valid`` whose operands the fused kernels
+    take (``flash_ops.takes``: bf16 on the card, S > 1, head_dim 64 or 128,
+    at most 16 query heads per KV head) runs ``flash_ops.flash_attention``;
+    every other call (decode, cache-length masks, non-causal attention,
+    float32, CPU tensors) runs the blocked float32 chain below.
     """
+    if causal and t_valid is None and flash_ops.takes(q, k, v):
+        return flash_ops.flash_attention(q, k, v, base_pos)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K

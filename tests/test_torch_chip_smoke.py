@@ -489,3 +489,47 @@ def test_ssd_plan_line_names_kernels_grids_and_the_card(capsys):
     assert lines[1].startswith("ssd plan ssd_backward: ")
     assert '"ssd_grad_kernel": [64, 8, 1]' in lines[1]
     assert "(25.0%); two runs bit for bit True" in lines[1]
+
+
+def test_launch_counts_cover_every_kernel_wrapper():
+    """``zero_launches`` / ``read_launches`` reach every wrapper of the
+    port's kernels that counts its launches, so each phase reads them
+    all."""
+    import importlib
+    import pkgutil
+
+    from repro_torch import kernels
+
+    counted = {id(fn) for fn in chip_smoke._counted().values()}
+    wrappers = {}
+    for mod in pkgutil.iter_modules(kernels.__path__):
+        if not mod.ispkg:
+            continue
+        ops = importlib.import_module(f"repro_torch.kernels.{mod.name}.ops")
+        for name, fn in vars(ops).items():
+            if callable(fn) and hasattr(fn, "launches") \
+                    and getattr(fn, "__module__", None) == ops.__name__:
+                wrappers[f"{mod.name}.{name}"] = fn
+    assert {"flash_attention.flash_forward",
+            "flash_attention.flash_backward"} <= set(wrappers)
+    missing = [n for n, fn in wrappers.items() if id(fn) not in counted]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_flash_bound_counts_the_causal_pairs(kind):
+    """The kernel table's bound counts what the fused ops' FLOP formulas
+    count: 4 hd FLOPs a visible pair forward, 8 backward."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, S, T, K, G, hd = chip_smoke.FLASH_SHAPES[kind]
+    if kind == "train":
+        bases, at_end = [0] * B, False
+    else:
+        bases, at_end = [T - S] * B, True
+    for backward, flops in ((False, fa_ops.forward_flops),
+                            (True, fa_ops.backward_flops)):
+        got = chip_smoke.flash_bound(B, S, T, K, G, hd, bases, backward)
+        assert got["flops"] == flops(B, S, T, K * G, hd, at_end)
+        assert got["bound_ms"] == pytest.approx(
+            got["flops"] / chip_smoke.BF16_FLOPS_PER_S * 1e3)

@@ -210,15 +210,16 @@ def test_granite_full_size_cells_run_on_the_pod_mesh(granite_rows, shape):
 
 def test_dense_prefill_flops_match_the_config(granite_rows):
     """Every rank runs the whole batch: 2 x tokens x the projection and MLP
-    weights, plus QK and PV over the whole key range (the blocked
-    attention masks, it does not skip), plus the last token's logits."""
+    weights, plus QK and PV over the (query, key) pairs the causal mask
+    keeps, S (S + 1) / 2 a head (the fused kernels skip the rest, and the
+    meta path counts what the card runs), plus the last token's logits."""
     row = _rows(granite_rows)["prefill_32k"]
     cfg = configs.get_config(GRANITE)
     shape = configs.SHAPES_BY_NAME["prefill_32k"]
     B, S, D, hd = shape.global_batch, shape.seq_len, cfg.d_model, cfg.hd
     proj = D * cfg.n_heads * hd * 2 + D * cfg.n_kv_heads * hd * 2
     per_layer = 2 * B * S * (proj + 3 * D * cfg.d_ff) \
-        + 4 * B * S * S * cfg.n_heads * hd
+        + 4 * B * (S * (S + 1) // 2) * cfg.n_heads * hd
     want = cfg.n_layers * per_layer + 2 * B * D * cfg.vocab
     assert abs(row["flops"] - want) <= FLOPS_RTOL * want, (row["flops"], want)
 
